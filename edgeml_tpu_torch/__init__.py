@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of the edge-offloading detection framework.
+
+A package of its own beside the JAX reference package: plain tensor code is
+PyTorch, and every Pallas kernel of the reference is a kernel written by hand
+for Hopper (``csrc/``, built at first use by ``_build.py``). This package
+imports torch and numpy only — never JAX, and nothing of the JAX package.
+
+Ported so far (slice 1): YOLOv5 detection serving, from an image directory
+to per-image detection files, with the fused greedy-NMS suppressor as a CUDA
+kernel (``ops/nms_fused.py``). Entry points run on the CUDA device unless the
+caller passes ``device="cpu"``.
+"""
+
+__all__ = ["data", "models", "ops"]

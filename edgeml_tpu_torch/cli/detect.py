@@ -1,0 +1,118 @@
+"""Collect the detection outputs of a detector over an image directory.
+
+    python -m edgeml_tpu_torch.cli.detect IMG_DIR SAVE_DIR --model yolov5n
+
+The same positional arguments and flags as the reference package's
+``tpu_models/detect.py``, plus ``--device`` (default ``cuda``). Writes one
+``{image stem}.npy`` (or ``.txt``) per image of normalised
+(cls, x, y, w, h, conf) rows. YOLOv5 n/s/m/l/x is ported; the other
+families, ``--int8``, ``--data-parallel`` and native JAX checkpoints are not
+yet and exit with a message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import zipfile
+
+import numpy as np
+import torch
+
+YOLO_MODELS = ("yolov5n", "yolov5s", "yolov5m", "yolov5l", "yolov5x")
+
+
+def load_state_dict(path: str):
+    """A state_dict from an ``.npz`` of arrays or a ``torch.save`` archive
+    (a state_dict, or a checkpoint holding a module under ``model``). A
+    plain pickle is a native JAX checkpoint, which needs JAX to unpickle."""
+    if os.path.isdir(path):
+        raise SystemExit(f"{path}: directory checkpoints (native JAX) are "
+                         f"not yet ported")
+    if path.endswith(".npz"):
+        data = np.load(path, allow_pickle=False)
+        return {k: data[k] for k in data.files}
+    if not zipfile.is_zipfile(path):
+        raise SystemExit(f"{path}: not a torch archive or .npz; native JAX "
+                         f"checkpoints are not yet ported")
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    if isinstance(obj, dict) and "model" in obj \
+            and hasattr(obj["model"], "state_dict"):
+        obj = obj["model"].float().state_dict()
+    return obj
+
+
+def load_detector(model_name: str, model_path: str, num_class: int):
+    """Build a YOLOv5 detector and load weights (random init, seed 0, with a
+    warning when no path is given)."""
+    if model_name not in YOLO_MODELS:
+        raise SystemExit(
+            f"Model '{model_name}' is not yet ported to edgeml_tpu_torch "
+            f"(ported: {', '.join(YOLO_MODELS)}).")
+    from ..models.yolov5 import YoloV5
+
+    net = YoloV5(variant=model_name[-1], num_classes=num_class,
+                 generator=torch.Generator().manual_seed(0))
+    if model_path:
+        net.load_ultralytics_state_dict(load_state_dict(model_path))
+    else:
+        print("WARNING: no --model-path given; using random weights.")
+    return net
+
+
+def main(opts):
+    if opts.model in YOLO_MODELS:
+        # YOLOv5 operates natively in the compact label space.
+        num_class = 80 if opts.dataset == "coco" else 20
+    else:
+        num_class = 91 if opts.dataset == "coco" else 21
+    if opts.int8:
+        raise SystemExit("--int8 serving is not yet ported")
+    if opts.data_parallel:
+        raise SystemExit("--data-parallel is not yet ported")
+    net = load_detector(opts.model, opts.model_path, num_class)
+
+    from ..models.infer import run_detection
+
+    run_detection(
+        net,
+        opts.img_dir,
+        opts.save_dir,
+        batch_size=opts.batch_size,
+        conf_thres=opts.conf_thres,
+        iou_thres=opts.iou_thres,
+        fmt=opts.format,
+        dtype=torch.bfloat16 if opts.bf16 else None,
+        device=opts.device,
+    )
+
+
+def getargs(argv=None):
+    """Parse command line arguments."""
+    args = argparse.ArgumentParser()
+    args.add_argument('img_dir', help="Image directory to run detection over.")
+    args.add_argument('save_dir', help="Output directory for per-image detection files.")
+    args.add_argument('--dataset', type=str, default="coco", help="Label space: 'coco' or 'voc'.")
+    args.add_argument('--model', type=str, default="ssd",
+                      help="The object detector. Ported: 'yolov5n'..'yolov5x'.")
+    args.add_argument("--model-path", type=str, default="",
+                      help="Weights file (.pt state_dict or .npz); empty = random init (smoke tests only).")
+    args.add_argument('--batch-size', type=int, default=16, help="Inference batch size.")
+    args.add_argument('--conf-thres', type=float, default=0.001, help="Confidence threshold.")
+    args.add_argument('--iou-thres', type=float, default=0.6, help="NMS IoU threshold.")
+    args.add_argument('--format', type=str, default="npy", choices=["npy", "txt"],
+                      help="Per-image output format.")
+    args.add_argument('--data-parallel', action="store_true",
+                      help="Not yet ported.")
+    args.add_argument('--bf16', action="store_true",
+                      help="bfloat16 serving (trunk + scores; boxes stay f32).")
+    args.add_argument('--int8', action="store_true", help="Not yet ported.")
+    args.add_argument('--device', type=str, default="cuda",
+                      help="'cuda' (default) or 'cpu'.")
+    return args.parse_args(argv)
+
+
+if __name__ == '__main__':
+    main(getargs())

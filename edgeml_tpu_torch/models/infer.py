@@ -1,0 +1,160 @@
+"""End-to-end detector inference: images -> per-image detection files.
+
+The serving loop is plain: the host decodes and letterboxes one batch (in
+prefetching worker threads), the device runs trunk + decode + NMS + unmap on
+it, and the host writes that batch's files. Output rows are
+(cls, x, y, w, h, conf), xywh-center normalised to the original image size,
+one ``.npy`` or ``.txt`` file per image named after the image stem.
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; with no CUDA device and none asked for they raise.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..data.loader import iter_batches, list_images
+from ..ops.nms import nms_split_batch
+from .common import letterbox_batch
+from .yolov5 import YoloV5
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device to serve on: ``device`` if given, else the CUDA device.
+    Raises when CUDA is wanted and absent — never a silent CPU run."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run on the "
+                "CPU explicitly")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           f"available")
+    return dev
+
+
+def exact_f32_cuda():
+    """Turn TF32 off for f32 convolutions and matmuls (cuDNN convolutions
+    default to TF32, which keeps about three decimal digits)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _nms_unmap(pred, meta, orig_hw, conf_thres, iou_thres,
+               max_det=300, multi_label=True):
+    """Batched NMS + letterbox unmap over split trunk outputs.
+
+    pred: (obj, xywh, cls) from YoloV5.predict; meta: (B, 3) letterbox
+    (ratio, dw, dh); orig_hw: (B, 2) original (h, w), f32.
+    Returns (dets (B, max_det, 6) rows [cls, x, y, w, h, conf] normalised to
+    the original image, valid (B, max_det))."""
+    obj, xywh, cls = pred
+    dets, valid = nms_split_batch(
+        obj, xywh, cls, conf_thres, iou_thres,
+        max_det=max_det, multi_label=multi_label,
+    )
+    r = meta[:, 0:1]
+    dw = meta[:, 1:2]
+    dh = meta[:, 2:3]
+    h, w = orig_hw[:, 0:1], orig_hw[:, 1:2]
+    x1 = torch.minimum(torch.clamp_min((dets[:, :, 0] - dw) / r, 0), w)
+    y1 = torch.minimum(torch.clamp_min((dets[:, :, 1] - dh) / r, 0), h)
+    x2 = torch.minimum(torch.clamp_min((dets[:, :, 2] - dw) / r, 0), w)
+    y2 = torch.minimum(torch.clamp_min((dets[:, :, 3] - dh) / r, 0), h)
+    out = torch.stack(
+        [
+            dets[:, :, 5],
+            (x1 + x2) / 2.0 / w,
+            (y1 + y2) / 2.0 / h,
+            (x2 - x1) / w,
+            (y2 - y1) / h,
+            dets[:, :, 4],
+        ],
+        dim=2,
+    )
+    return out, valid
+
+
+@torch.no_grad()
+def detect_batch(net: YoloV5, images, meta, orig_hw, conf_thres: float,
+                 iou_thres: float, max_det: int = 300,
+                 multi_label: bool = True, dtype=None):
+    """Forward + decode + NMS + unmap for one letterboxed batch on the
+    images' device.
+
+    images: (B, S, S, 3) uint8 pixels or float in [0, 1]; dtype: None (f32)
+    or torch.bfloat16 for the trunk and score path.
+    Returns (dets (B, max_det, 6) rows [cls, x, y, w, h, conf], valid)."""
+    if images.dtype == torch.uint8:
+        images = images.to(torch.float32) / 255.0
+    pred = net.predict(images, dtype=dtype)
+    return _nms_unmap(pred, meta, orig_hw, conf_thres, iou_thres,
+                      max_det, multi_label)
+
+
+def run_detection(
+    net: YoloV5,
+    img_dir: str,
+    save_dir: str,
+    batch_size: int = 16,
+    conf_thres: float = 0.001,
+    iou_thres: float = 0.6,
+    img_size: int = 640,
+    fmt: str = "npy",
+    dtype=None,
+    device=None,
+):
+    """Detect every image in img_dir; save per-image detection files.
+
+    :param net: a YoloV5 module; it is moved to ``device`` (in place).
+    :param dtype: None (f32, TF32 off) or torch.bfloat16 serving.
+    :param device: "cuda" (the default when None) or "cpu".
+    """
+    dev = resolve_device(device)
+    if not isinstance(net, YoloV5):
+        raise TypeError(f"run_detection: {type(net).__name__} is not yet "
+                        f"ported (YOLOv5 only)")
+    if dev.type == "cuda":
+        exact_f32_cuda()
+    net.to(dev).eval()
+    names = list_images(img_dir)
+    Path(save_dir).mkdir(parents=True, exist_ok=True)
+
+    def make_batch(items):
+        """Worker thread: letterbox; pad the tail batch to full size."""
+        chunk_names = [n for n, _ in items]
+        imgs = [im for _, im in items]
+        imgs_p = imgs + [imgs[-1]] * (batch_size - len(imgs))
+        hw = np.array([im.shape[:2] for im in imgs_p], np.float32)
+        lb, meta = letterbox_batch(imgs_p, img_size)
+        return chunk_names, lb, meta, hw
+
+    def save_batch(chunk_names, dets, valid):
+        for bi, name in enumerate(chunk_names):
+            rows = dets[bi][valid[bi]]
+            stem = ".".join(name.split(".")[:-1]) or name
+            if fmt == "npy":
+                np.save(os.path.join(save_dir, stem + ".npy"), rows)
+            else:
+                with open(os.path.join(save_dir, stem + ".txt"), "w") as f:
+                    for r in rows:
+                        f.write(
+                            f"{int(r[0])} {r[1]:.6f} {r[2]:.6f} {r[3]:.6f} "
+                            f"{r[4]:.6f} {r[5]:.6f}\n"
+                        )
+
+    for chunk_names, arr, meta, hw in iter_batches(
+        img_dir, names, batch_size, make_batch
+    ):
+        dets, valid = detect_batch(
+            net, torch.from_numpy(arr).to(dev), torch.from_numpy(meta).to(dev),
+            torch.from_numpy(hw).to(dev), conf_thres, iou_thres, dtype=dtype,
+        )
+        save_batch(chunk_names, dets.cpu().numpy(), valid.cpu().numpy())

@@ -1,0 +1,372 @@
+"""YOLOv5 (n/s/m/l/x) in PyTorch — the weak/strong detector pair.
+
+The v6.x architecture (6x6 stem conv, CSP C3 blocks, SPPF, PANet neck,
+anchor-based 3-level detect head) with width/depth multiples per variant,
+ultralytics module naming (``model.{idx}...``) so yolov5 state_dicts load by
+key. Activations are NCHW inside the module; the serving output of
+``predict`` is in the reference package's layout:
+
+    obj (B, N), xywh (B, N, 4) f32 pixel xywh-center, cls (B, N, nc),
+
+rows ordered level, h, w, anchor (N = sum over levels of H * W * na).
+
+Weights come from a seeded ``torch.Generator`` (torch's default conv init:
+uniform in +-1/sqrt(fan_in); BatchNorm identity; yolov5's objectness/class
+bias priors), from the reference package's parameter trees
+(``from_jax_params``) or from an ultralytics state_dict
+(``load_ultralytics_state_dict``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .common import CastCache, ConvBN, max_pool_same, upsample2x
+
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.03
+
+# (depth_multiple, width_multiple) per variant.
+YOLOV5_VARIANTS = {
+    "n": (0.33, 0.25),
+    "s": (0.33, 0.50),
+    "m": (0.67, 0.75),
+    "l": (1.00, 1.00),
+    "x": (1.33, 1.25),
+}
+
+# Default P5 anchors in pixels, per detection level (stride 8 / 16 / 32).
+DEFAULT_ANCHORS = (
+    ((10, 13), (16, 30), (33, 23)),
+    ((30, 61), (62, 45), (59, 119)),
+    ((116, 90), (156, 198), (373, 326)),
+)
+STRIDES = (8, 16, 32)
+HEAD_STAGES = (17, 20, 23)  # layer indices feeding the detect head
+
+
+def _gw(c, width):
+    """Scale channel count by the width multiple, to a multiple of 8."""
+    return max(int(math.ceil(c * width / 8) * 8), 8) if c != 3 else 3
+
+
+def _gd(n, depth):
+    return max(round(n * depth), 1)
+
+
+def yolov5_layers(variant: str):
+    """The layer table: (index, kind, from, kwargs); "from" -1 is the
+    previous output."""
+    d, w = YOLOV5_VARIANTS[variant]
+    c = {k: _gw(k, w) for k in (64, 128, 256, 512, 1024)}
+    return [
+        (0, "conv", -1, dict(cin=3, cout=c[64], k=6, s=2, p=2)),
+        (1, "conv", -1, dict(cin=c[64], cout=c[128], k=3, s=2)),
+        (2, "c3", -1, dict(cin=c[128], cout=c[128], n=_gd(3, d), shortcut=True)),
+        (3, "conv", -1, dict(cin=c[128], cout=c[256], k=3, s=2)),
+        (4, "c3", -1, dict(cin=c[256], cout=c[256], n=_gd(6, d), shortcut=True)),
+        (5, "conv", -1, dict(cin=c[256], cout=c[512], k=3, s=2)),
+        (6, "c3", -1, dict(cin=c[512], cout=c[512], n=_gd(9, d), shortcut=True)),
+        (7, "conv", -1, dict(cin=c[512], cout=c[1024], k=3, s=2)),
+        (8, "c3", -1, dict(cin=c[1024], cout=c[1024], n=_gd(3, d), shortcut=True)),
+        (9, "sppf", -1, dict(cin=c[1024], cout=c[1024], k=5)),
+        (10, "conv", -1, dict(cin=c[1024], cout=c[512], k=1, s=1)),
+        (11, "up", -1, {}),
+        (12, "concat", (-1, 6), {}),
+        (13, "c3", -1, dict(cin=c[1024], cout=c[512], n=_gd(3, d), shortcut=False)),
+        (14, "conv", -1, dict(cin=c[512], cout=c[256], k=1, s=1)),
+        (15, "up", -1, {}),
+        (16, "concat", (-1, 4), {}),
+        (17, "c3", -1, dict(cin=c[512], cout=c[256], n=_gd(3, d), shortcut=False)),
+        (18, "conv", -1, dict(cin=c[256], cout=c[256], k=3, s=2)),
+        (19, "concat", (-1, 14), {}),
+        (20, "c3", -1, dict(cin=c[512], cout=c[512], n=_gd(3, d), shortcut=False)),
+        (21, "conv", -1, dict(cin=c[512], cout=c[512], k=3, s=2)),
+        (22, "concat", (-1, 10), {}),
+        (23, "c3", -1, dict(cin=c[1024], cout=c[1024], n=_gd(3, d), shortcut=False)),
+    ]
+
+
+def _convbn(cin, cout, k=1, s=1, p=None):
+    return ConvBN(cin, cout, k, s, p, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, c, shortcut):
+        super().__init__()
+        self.cv1 = _convbn(c, c, 1)
+        self.cv2 = _convbn(c, c, 3)
+        self.add = shortcut
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C3(nn.Module):
+    def __init__(self, cin, cout, n, shortcut):
+        super().__init__()
+        ch = cout // 2
+        self.cv1 = _convbn(cin, ch, 1)
+        self.cv2 = _convbn(cin, ch, 1)
+        self.cv3 = _convbn(2 * ch, cout, 1)
+        self.m = nn.Sequential(*[Bottleneck(ch, shortcut) for _ in range(n)])
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class SPPF(nn.Module):
+    def __init__(self, cin, cout, k=5):
+        super().__init__()
+        ch = cin // 2
+        self.cv1 = _convbn(cin, ch, 1)
+        self.cv2 = _convbn(ch * 4, cout, 1)
+        self.k = k
+
+    def forward(self, x):
+        y = self.cv1(x)
+        p1 = max_pool_same(y, self.k)
+        p2 = max_pool_same(p1, self.k)
+        p3 = max_pool_same(p2, self.k)
+        return self.cv2(torch.cat([y, p1, p2, p3], 1))
+
+
+class Detect(nn.Module):
+    """Per-level 1x1 convs with bias (``model.24.m.{level}``)."""
+
+    def __init__(self, nc, chs, na):
+        super().__init__()
+        self.m = nn.ModuleList(nn.Conv2d(c, na * (nc + 5), 1) for c in chs)
+        self._cast = CastCache()
+
+
+class YoloV5(nn.Module):
+    """YOLOv5 detector. ``anchors`` are pixels per level, a plain tuple (not
+    a buffer: a bf16 copy of the module must not round them)."""
+
+    def __init__(self, variant: str = "n", num_classes: int = 80,
+                 img_size: int = 640, anchors=DEFAULT_ANCHORS,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.variant = variant
+        self.num_classes = num_classes
+        self.img_size = img_size
+        self.anchors = tuple(tuple(tuple(float(v) for v in a) for a in lvl)
+                             for lvl in anchors)
+        mods = []
+        for idx, kind, _, kw in self.layers():
+            if kind == "conv":
+                mods.append(_convbn(kw["cin"], kw["cout"], kw["k"], kw["s"],
+                                    kw.get("p")))
+            elif kind == "c3":
+                mods.append(C3(kw["cin"], kw["cout"], kw["n"], kw["shortcut"]))
+            elif kind == "sppf":
+                mods.append(SPPF(kw["cin"], kw["cout"], kw["k"]))
+            else:  # up / concat: routing only, no parameters
+                mods.append(nn.Identity())
+        mods.append(Detect(num_classes, self.head_channels, self.na))
+        self.model = nn.ModuleList(mods)
+        self.reset_parameters(generator)
+        self.eval()
+
+    @property
+    def na(self):
+        return len(self.anchors[0])
+
+    @property
+    def no(self):
+        return self.num_classes + 5
+
+    @property
+    def head_channels(self):
+        w = YOLOV5_VARIANTS[self.variant][1]
+        return (_gw(256, w), _gw(512, w), _gw(1024, w))
+
+    def layers(self):
+        return yolov5_layers(self.variant)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Seeded init: conv weights uniform in +-1/sqrt(fan_in) (torch's
+        default conv init), BatchNorm identity, and yolov5's detect-head
+        bias priors (objectness log(8 / (640 / stride)^2), class
+        log(0.6 / (nc - 0.99999)))."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.in_channels // m.groups * m.kernel_size[0] \
+                    * m.kernel_size[1]
+                bound = math.sqrt(1.0 / fan_in)
+                w = torch.empty(m.weight.shape).uniform_(
+                    -bound, bound, generator=generator)
+                m.weight.copy_(w)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+        for conv, stride in zip(self.model[24].m, STRIDES):
+            b = np.zeros((self.na, self.no), np.float32)
+            b[:, 4] = math.log(8 / (self.img_size / stride) ** 2)
+            b[:, 5:] = math.log(0.6 / (self.num_classes - 0.99999))
+            conv.bias.copy_(torch.from_numpy(b.reshape(-1)))
+
+    # ---- forward -----------------------------------------------------------
+
+    def trunk(self, x):
+        """Backbone + neck walk; returns the HEAD_STAGES outputs (NCHW)."""
+        outputs = {}
+        y = x
+        for idx, kind, src, _ in self.layers():
+            if kind in ("conv", "c3", "sppf"):
+                y = self.model[idx](y)
+            elif kind == "up":
+                y = upsample2x(y)
+            elif kind == "concat":
+                y = torch.cat([y, outputs[src[1]]], 1)
+            else:
+                raise ValueError(f"unknown layer kind {kind!r}")
+            outputs[idx] = y
+        return [outputs[i] for i in HEAD_STAGES]
+
+    @torch.no_grad()
+    def predict(self, x, dtype: torch.dtype | None = None):
+        """Serving path: trunk + head + anchor decode.
+
+        :param x: (B, S, S, 3) float images in [0, 1], NHWC as the loader
+            produces them.
+        :param dtype: optional compute dtype for the trunk and the obj/cls
+            score path (torch.bfloat16). Box geometry is always decoded in
+            f32: the xy/wh head outputs are cast to f32 before their (bf16-
+            rounded) bias is added, as in the reference.
+        :return: (obj (B, N), xywh (B, N, 4) f32, cls (B, N, nc)).
+        """
+        hdtype = torch.float32 if dtype is None else dtype
+        x = x.permute(0, 3, 1, 2).to(hdtype)
+        feats = self.trunk(x)
+        det = self.model[24]
+        params = det._cast.get(
+            [t for conv in det.m for t in (conv.weight, conv.bias)], hdtype)
+        na, no, nc = self.na, self.no, self.num_classes
+        f32 = torch.float32
+        objs, xywhs, clss = [], [], []
+        for li, (f, stride, anchors) in enumerate(
+                zip(feats, STRIDES, self.anchors)):
+            w, bias = params[2 * li], params[2 * li + 1].reshape(na, no)
+            h = F.conv2d(f, w)  # (B, na*no, H, W), bias added per component
+            b, _, hh, ww = h.shape
+            h = h.reshape(b, na, no, hh, ww).permute(0, 3, 4, 1, 2)
+            h_xy = h[..., 0:2].to(f32) + bias[:, 0:2].to(f32)
+            h_wh = h[..., 2:4].to(f32) + bias[:, 2:4].to(f32)
+            h_obj = h[..., 4] + bias[:, 4]
+            h_cls = h[..., 5:] + bias[:, 5:]
+            gy, gx = torch.meshgrid(
+                torch.arange(hh, dtype=f32, device=h.device),
+                torch.arange(ww, dtype=f32, device=h.device), indexing="ij")
+            grid = torch.stack([gx, gy], dim=-1)  # (H, W, 2) = (x, y)
+            anc = self._anchor_tensor(anchors, h.device)
+            xy = (torch.sigmoid(h_xy) * 2.0 - 0.5 + grid[:, :, None, :]) \
+                * stride
+            wh = (torch.sigmoid(h_wh) * 2.0) ** 2 * anc[None, None, :, :]
+            xywhs.append(torch.cat([xy, wh], -1).reshape(b, -1, 4))
+            objs.append(torch.sigmoid(h_obj).reshape(b, -1))
+            clss.append(torch.sigmoid(h_cls).reshape(b, -1, nc))
+        return torch.cat(objs, 1), torch.cat(xywhs, 1), torch.cat(clss, 1)
+
+    def _anchor_tensor(self, anchors, device):
+        """One level's (na, 2) f32 anchors on ``device``, cached: a host to
+        device copy per call would wait for the stream."""
+        cache = self.__dict__.setdefault("_anchors_on_device", {})
+        key = (anchors, str(device))
+        if key not in cache:
+            cache[key] = torch.tensor(anchors, dtype=torch.float32,
+                                      device=device)
+        return cache[key]
+
+    def raw_heads(self, x):
+        """Raw f32 head outputs per level, (B, H, W, na, no) — the
+        reference's ``apply`` layout, for import checks. x: NHWC."""
+        feats = self.trunk(x.permute(0, 3, 1, 2))
+        out = []
+        for f, conv in zip(feats, self.model[24].m):
+            h = conv(f)
+            b, _, hh, ww = h.shape
+            out.append(h.reshape(b, self.na, self.no, hh, ww)
+                       .permute(0, 3, 4, 1, 2))
+        return out
+
+    # ---- weights -----------------------------------------------------------
+
+    @torch.no_grad()
+    def from_jax_params(self, params, stats):
+        """Fill the module from the reference package's (params, stats)
+        trees (nested dicts/lists of arrays, HWIO conv kernels)."""
+
+        def arr(a):
+            return torch.from_numpy(np.array(a, dtype=np.float32))
+
+        def convbn(mod, p, s):
+            mod.conv.weight.copy_(arr(p["w"]).permute(3, 2, 0, 1))
+            mod.bn.weight.copy_(arr(p["g"]))
+            mod.bn.bias.copy_(arr(p["b"]))
+            mod.bn.running_mean.copy_(arr(s["m"]))
+            mod.bn.running_var.copy_(arr(s["v"]))
+
+        for idx, kind, _, kw in self.layers():
+            name = f"l{idx}"
+            mod = self.model[idx]
+            if kind == "conv":
+                convbn(mod, params[name], stats[name])
+            elif kind == "c3":
+                p, s = params[name], stats[name]
+                for cv in ("cv1", "cv2", "cv3"):
+                    convbn(getattr(mod, cv), p[cv], s[cv])
+                for j in range(kw["n"]):
+                    for cv in ("cv1", "cv2"):
+                        convbn(getattr(mod.m[j], cv), p["m"][j][cv],
+                               s["m"][j][cv])
+            elif kind == "sppf":
+                p, s = params[name], stats[name]
+                convbn(mod.cv1, p["cv1"], s["cv1"])
+                convbn(mod.cv2, p["cv2"], s["cv2"])
+        for conv, p in zip(self.model[24].m, params["detect"]):
+            conv.weight.copy_(arr(p["w"]).permute(3, 2, 0, 1))
+            conv.bias.copy_(arr(p["b"]))
+        return self
+
+    @torch.no_grad()
+    def load_ultralytics_state_dict(self, sd):
+        """Load an ultralytics YOLOv5 state_dict (torch tensors or numpy
+        arrays). Keys may carry a leading ``model.`` or not. The checkpoint's
+        ``model.24.anchors`` is in grid units (anchors / stride) and is
+        rescaled back to pixels."""
+
+        def get(k):
+            for cand in (k, "model." + k, k.replace("model.", "", 1)):
+                if cand in sd:
+                    v = sd[cand]
+                    return np.asarray(v.detach().cpu().numpy()
+                                      if hasattr(v, "detach") else v)
+            raise KeyError(k)
+
+        for key, dst in self.state_dict().items():
+            if key.endswith("num_batches_tracked"):
+                continue
+            src = get(key)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{key}: checkpoint shape {src.shape}, "
+                                 f"model shape {tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
+        try:
+            anchors_grid = get("model.24.anchors")  # (3, na, 2), grid units
+        except KeyError:
+            return self
+        anchors_px = anchors_grid * np.asarray(STRIDES)[:, None, None]
+        self.anchors = tuple(tuple(map(tuple, lvl))
+                             for lvl in anchors_px.tolist())
+        return self

@@ -1,0 +1,173 @@
+"""Batched class-aware non-maximum suppression with the exact NMS contract.
+
+Semantics follow the yolov5 tooling that produced the reference's detection
+files: confidence = objectness * class probability, candidates gated by
+conf > conf_thres, multi-label (one candidate per (box, class) pair),
+class-aware IoU through per-class box offsets, strict-greater suppression at
+iou_thres, at most max_det survivors ordered by confidence.
+
+Candidate selection is the exact two-stage ranking: boxes are pre-filtered by
+their best pair confidence (every box holding a pair above the k-th pair
+confidence holds its own best pair above it, so the top max_cand boxes contain
+every top-max_cand pair), then all pairs of those boxes are ranked.
+
+Every ranking is a stable descending sort: equal values keep ascending-index
+order, the canonical order (score descending, index ascending) that the
+reference's top-k produces on every path. Thresholds are compared in the
+scores' own dtype, as a weakly typed scalar is in the reference.
+
+Suppression runs in ``ops/nms_fused.py``: the CUDA kernel for CUDA tensors,
+its plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .nms_fused import greedy_keep_mask_fused, greedy_keep_mask_plain
+
+MAX_WH = 7680.0  # class-offset stride, matches the yolov5 convention
+
+
+def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-dim tensor of ``like``'s dtype and device, so a
+    comparison rounds the threshold to the tensor's dtype first."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def greedy_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
+                     iou_thres: float) -> torch.Tensor:
+    """Exact greedy-NMS survivor mask of one image.
+
+    :param boxes: (K, 4) xyxy, sorted by descending score.
+    :param scores: (K,); entries <= 0 never participate.
+    :return: (K,) bool.
+    """
+    return greedy_keep_mask_plain(boxes[None], scores[None], iou_thres)[0]
+
+
+def topk1d(x: torch.Tensor, k: int):
+    """Top k along the last dimension, values descending, equal values in
+    ascending-index order (a stable sort; ``torch.topk`` makes no tie-order
+    promise). Returns (values, indices)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _compact(cand_boxes, top_scores, cls_idx, kept, max_det):
+    """Compact each image's survivors into (B, max_det, 6) rows
+    [x1, y1, x2, y2, conf, cls] in candidate (= descending score) order,
+    zero rows after the last survivor, plus the (B, max_det) valid mask."""
+    b, k = top_scores.shape
+    m = min(max_det, k)
+    # kept candidates first, each group in ascending index order
+    order = torch.sort(kept.to(torch.uint8), dim=1, descending=True,
+                       stable=True).indices
+    sel = order[:, :m]
+    sel_kept = kept.gather(1, sel)
+    rows = torch.cat(
+        [cand_boxes, top_scores.to(torch.float32)[..., None],
+         cls_idx[..., None]], dim=2)
+    out = rows.gather(1, sel[..., None].expand(b, m, 6))
+    out = torch.where(sel_kept[..., None], out, 0.0)
+    if m < max_det:
+        out = torch.cat([out, out.new_zeros((b, max_det - m, 6))], dim=1)
+    valid = out[..., 4] > 0.0
+    return torch.where(valid[..., None], out, 0.0), valid
+
+
+def _emit_batch(cand_boxes, top_scores, cls_idx, iou_thres, max_det):
+    """Suppression + compaction of (B, K) candidates. The suppressor is the
+    CUDA kernel for CUDA tensors (K <= 1024) and its plain version for CPU
+    tensors."""
+    off = cand_boxes + cls_idx[..., None] * MAX_WH
+    kept = greedy_keep_mask_fused(off, top_scores, float(iou_thres))
+    return _compact(cand_boxes, top_scores, cls_idx, kept, max_det)
+
+
+def _gather_rows(x, idx):
+    """x (B, N, C) rows at idx (B, K) -> (B, K, C)."""
+    return x.gather(1, idx[..., None].expand(*idx.shape, x.shape[-1]))
+
+
+def _rank_pairs_exact(obj, xywh, cls, conf_thres, max_cand):
+    """Exact two-stage pair selection for a batch: pre-filter boxes by their
+    best pair confidence max_c(obj * cls_c), then rank all kb * nc pairs of
+    the kept boxes.
+
+    Returns (top_scores (B, k), bxywh (B, k, 4), col (B, k) int64)."""
+    b, n, nc = cls.shape
+    kb = min(max_cand, n)
+    best = cls.amax(dim=2) * obj
+    box_score = torch.where(
+        (obj > _scalar(conf_thres, obj)) & (best > _scalar(conf_thres, best)),
+        best, -1.0)
+    best_top, box_pre = topk1d(box_score, kb)
+    xywh_pre = _gather_rows(xywh, box_pre)
+    obj_pre = obj.gather(1, box_pre)
+    cls_conf = _gather_rows(cls, box_pre) * obj_pre[..., None]
+    flat = torch.where(
+        (best_top[..., None] > 0) & (cls_conf > _scalar(conf_thres, cls_conf)),
+        cls_conf, -1.0).reshape(b, -1)
+    k = min(max_cand, flat.shape[1])
+    top_scores, top_idx = topk1d(flat, k)
+    bxywh = _gather_rows(xywh_pre, torch.div(top_idx, nc,
+                                             rounding_mode="floor"))
+    return top_scores, bxywh, top_idx % nc
+
+
+def _rank_boxes_single(obj, xywh, cls, conf_thres, max_cand):
+    """Single-label selection: each box's best class only. Returns
+    (top_scores (B, k), bxywh (B, k, 4), cls_idx (B, k) int64)."""
+    n = obj.shape[1]
+    best_conf = cls.amax(dim=2) * obj
+    scores = torch.where(
+        (obj > _scalar(conf_thres, obj))
+        & (best_conf > _scalar(conf_thres, best_conf)), best_conf, -1.0)
+    best_cls = cls.argmax(dim=2)  # first maximal index on ties
+    top_scores, box_pre = topk1d(scores, min(max_cand, n))
+    return top_scores, _gather_rows(xywh, box_pre), best_cls.gather(1, box_pre)
+
+
+def candidates(obj, xywh, cls, conf_thres=0.001, max_cand=1024,
+               multi_label=True):
+    """The ranked candidates that enter suppression.
+
+    Returns (cand_boxes (B, k, 4) f32 xyxy, top_scores (B, k) in the score
+    dtype, entries <= 0 not real; cls_idx (B, k) f32)."""
+    nc = cls.shape[-1]
+    if multi_label and nc > 1:
+        top_scores, bxywh, col = _rank_pairs_exact(obj, xywh, cls,
+                                                   conf_thres, max_cand)
+    else:
+        top_scores, bxywh, col = _rank_boxes_single(obj, xywh, cls,
+                                                    conf_thres, max_cand)
+    half = bxywh[..., 2:4] * 0.5
+    cand_boxes = torch.cat([bxywh[..., :2] - half, bxywh[..., :2] + half],
+                           dim=-1)
+    return cand_boxes, top_scores, col.to(torch.float32)
+
+
+def nms_split_batch(
+    obj: torch.Tensor,  # (B, N) objectness, sigmoid space
+    xywh: torch.Tensor,  # (B, N, 4) pixel xywh-center boxes, f32
+    cls: torch.Tensor,  # (B, N, nc) class probabilities, sigmoid space
+    conf_thres: float = 0.001,
+    iou_thres: float = 0.6,
+    max_det: int = 300,
+    max_cand: int = 1024,
+    multi_label: bool = True,
+):
+    """Batched NMS over split decode components (``YoloV5.predict`` output).
+
+    The exact contract of the reference's ``nms_split_batch`` (its
+    ``pool=False`` mode; its default pool mode gives the same results):
+    exact pair ranking per image, then the batched suppressor.
+
+    :return: (dets (B, max_det, 6) [x1, y1, x2, y2, conf, cls] f32,
+        valid (B, max_det) bool).
+    """
+    cand_boxes, top_scores, cls_idx = candidates(
+        obj, xywh, cls, conf_thres, max_cand, multi_label)
+    return _emit_batch(cand_boxes, top_scores, cls_idx, float(iou_thres),
+                       max_det)

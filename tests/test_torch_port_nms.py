@@ -1,0 +1,226 @@
+"""The port's NMS against the JAX package, bit for bit.
+
+Inputs are made from a seed with numpy and handed to both frameworks as
+numpy arrays. Tolerance everywhere in this file: none — keep masks, dets and
+valid masks must be identical, because the port repeats the reference's f32
+arithmetic op for op and ranks with stable sorts (the reference's canonical
+tie order). bf16 values are made in f32 (every bf16 value is exact in f32)
+and cast on each side.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from edgeml_tpu.ops.nms import MAX_WH, greedy_keep_mask
+from edgeml_tpu.ops.nms import nms_split_batch as jax_nms_split_batch
+from edgeml_tpu.ops.nms_fused import greedy_keep_mask_fused as jax_fused
+from edgeml_tpu_torch.ops import nms as tnms
+from edgeml_tpu_torch.ops.nms_fused import (
+    greedy_keep_mask_fused, greedy_keep_mask_plain,
+)
+
+torch.set_num_threads(1)
+
+
+def fuzz_boxes(seed, b, k, spread, ncls):
+    """The fuzz regimes of tests/test_nms_fused.py: sorted scores with a
+    gated-out tail, class offsets applied."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(20, 20 + spread, (b, k, 2)).astype(np.float32)
+    wh = rng.uniform(30, 150, (b, k, 2)).astype(np.float32)
+    scores = np.sort(rng.random((b, k)).astype(np.float32), axis=-1)[:, ::-1]
+    scores = np.ascontiguousarray(scores)
+    scores[scores < 0.05] = 0.0  # gated-out tail
+    cls = rng.integers(0, ncls, (b, k)).astype(np.float32)
+    boxes = np.concatenate([xy - wh / 2, xy + wh / 2], axis=-1)
+    return (boxes + cls[..., None] * np.float32(MAX_WH)).astype(np.float32), \
+        scores
+
+
+REGIMES = [(0, 80.0, 1), (1, 300.0, 4), (2, 2000.0, 80)]
+
+
+@pytest.mark.parametrize("k", [256, 1024])
+@pytest.mark.parametrize("thr", [0.6, 0.45])
+@pytest.mark.parametrize("seed,spread,ncls", REGIMES)
+def test_keep_mask_plain_matches_jax(seed, spread, ncls, k, thr):
+    """greedy_keep_mask_plain == the interpret-mode Pallas kernel ==
+    vmap(greedy_keep_mask), bit for bit."""
+    b = 2
+    off, sc = fuzz_boxes(seed + k, b, k, spread, ncls)
+    want = np.asarray(jax.vmap(
+        lambda bb, ss: greedy_keep_mask(bb, ss, thr))(jnp.asarray(off),
+                                                      jnp.asarray(sc)))
+    got = greedy_keep_mask_plain(torch.from_numpy(off),
+                                 torch.from_numpy(sc), thr).numpy()
+    np.testing.assert_array_equal(got, want)
+    if k == 256 or seed == 0:  # interpret mode is slow at K = 1024
+        pallas = np.asarray(jax_fused(jnp.asarray(off), jnp.asarray(sc), thr,
+                                      interpret=True))
+        np.testing.assert_array_equal(got, pallas)
+    # the CPU dispatch of the public entry point is the plain version
+    np.testing.assert_array_equal(
+        greedy_keep_mask_fused(torch.from_numpy(off), torch.from_numpy(sc),
+                               thr).numpy(), want)
+    # and the single-image form
+    np.testing.assert_array_equal(
+        tnms.greedy_keep_mask(torch.from_numpy(off[0]),
+                              torch.from_numpy(sc[0]), thr).numpy(), want[0])
+
+
+def test_iou_threshold_rounds_to_f32_like_jax():
+    """Two boxes whose IoU lies between the f64 threshold and its f32
+    rounding: the compare must use the f32-rounded threshold, as JAX's weakly
+    typed compare does. IoU here is exactly 0.6f32 (> 0.6 in f64)."""
+    thr = 0.6
+    t32 = np.float32(thr)
+    assert float(t32) > thr  # 0.6f32 = 0.60000002384...
+    # box0 area 100, box1 inside it with area 60 -> iou = 60/100
+    boxes = np.array([[[0, 0, 10, 10], [0, 0, 6, 10]]], np.float32)
+    iou = np.float32(60.0) / np.float32(100.0)
+    assert iou == t32
+    sc = np.array([[0.9, 0.8]], np.float32)
+    want = np.asarray(jax.vmap(
+        lambda bb, ss: greedy_keep_mask(bb, ss, thr))(jnp.asarray(boxes),
+                                                      jnp.asarray(sc)))
+    got = greedy_keep_mask_plain(torch.from_numpy(boxes),
+                                 torch.from_numpy(sc), thr).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.tolist() == [[True, True]]  # iou == thr: not suppressed
+
+
+def make_case(rng, b, n, nc, hot_boxes=0):
+    """Copy of tests/test_nms_split_batch.py make_case, returning numpy."""
+    obj = rng.random((b, n)).astype(np.float32)
+    xywh = np.stack(
+        [
+            rng.uniform(50, 600, (b, n)),
+            rng.uniform(50, 600, (b, n)),
+            rng.uniform(5, 80, (b, n)),
+            rng.uniform(5, 80, (b, n)),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+    cls = (rng.random((b, n, nc)) ** 4).astype(np.float32)
+    if hot_boxes:
+        h = hot_boxes
+        cls[:, :h, :] *= 1e-3
+        cls[:, np.arange(h), rng.integers(0, nc, h)] = 0.99
+        obj[:, :h] = 1.0
+        cls[:, h : h + 10, :] = 0.9
+        obj[:, h : h + 10] = 1.0
+        cls[:, h + 10 :, :] *= 0.05
+    return obj, xywh, cls
+
+
+def tie_case(rng, b, n, nc):
+    """tests/test_nms_split_batch.py:187 — a coarse score grid, so every
+    value collides with ~n*nc/12 others (bf16 tie clusters)."""
+    obj = np.ones((b, n), np.float32)
+    cls = rng.choice(
+        [0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95, 0.99],
+        (b, n, nc),
+    ).astype(np.float32)
+    xywh = np.stack(
+        [
+            rng.uniform(50, 600, (b, n)),
+            rng.uniform(50, 600, (b, n)),
+            rng.uniform(5, 80, (b, n)),
+            rng.uniform(5, 80, (b, n)),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+    return obj, xywh, cls
+
+
+def _both(obj, xywh, cls, bf16, pool, **kw):
+    if bf16:
+        jo = jnp.asarray(obj, jnp.bfloat16)
+        jc = jnp.asarray(cls, jnp.bfloat16)
+        to = torch.from_numpy(obj).to(torch.bfloat16)
+        tc = torch.from_numpy(cls).to(torch.bfloat16)
+    else:
+        jo, jc = jnp.asarray(obj), jnp.asarray(cls)
+        to, tc = torch.from_numpy(obj), torch.from_numpy(cls)
+    d_ref, v_ref = jax_nms_split_batch(jo, jnp.asarray(xywh), jc, pool=pool,
+                                       **kw)
+    d, v = tnms.nms_split_batch(to, torch.from_numpy(xywh), tc, **kw)
+    return (np.asarray(d_ref), np.asarray(v_ref)), (d.numpy(), v.numpy())
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize(
+    "b,n,nc,max_cand,hot,pool",
+    [
+        (3, 500, 80, 128, 0, True),
+        (2, 2000, 80, 1024, 0, True),
+        (2, 600, 80, 256, 200, True),  # hot boxes: JAX takes its fallback
+        (2, 600, 80, 256, 200, False),
+        (2, 300, 6, 64, 0, False),
+        (1, 50, 3, 32, 0, True),  # tiny n, pool smaller than k
+    ],
+)
+def test_nms_split_batch_matches_jax(b, n, nc, max_cand, hot, pool, bf16):
+    rng = np.random.default_rng(b * 1000 + n + nc + hot)
+    obj, xywh, cls = make_case(rng, b, n, nc, hot_boxes=hot)
+    kw = dict(conf_thres=1e-4, iou_thres=0.6, max_det=64, max_cand=max_cand)
+    (d_ref, v_ref), (d, v) = _both(obj, xywh, cls, bf16, pool, **kw)
+    np.testing.assert_array_equal(v, v_ref)
+    np.testing.assert_array_equal(d, d_ref)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_tie_clusters_match_jax(bf16):
+    """Stable-sort ranking reproduces the reference's canonical order
+    (score descending, index ascending) through large tie clusters — in
+    bf16 the reference ranks packed integer keys, in f32 plain values."""
+    rng = np.random.default_rng(9)
+    obj, xywh, cls = tie_case(rng, 2, 2000, 80)
+    kw = dict(conf_thres=1e-4, iou_thres=0.6, max_det=300, max_cand=1024)
+    (d_ref, v_ref), (d, v) = _both(obj, xywh, cls, bf16, True, **kw)
+    assert v_ref.sum() > 0
+    np.testing.assert_array_equal(v, v_ref)
+    np.testing.assert_array_equal(d, d_ref)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_single_label_matches_jax(bf16):
+    rng = np.random.default_rng(2)
+    obj, xywh, cls = make_case(rng, 2, 400, 20)
+    kw = dict(conf_thres=1e-3, iou_thres=0.5, max_det=32, max_cand=64,
+              multi_label=False)
+    (d_ref, v_ref), (d, v) = _both(obj, xywh, cls, bf16, True, **kw)
+    np.testing.assert_array_equal(v, v_ref)
+    np.testing.assert_array_equal(d, d_ref)
+
+
+def test_conf_threshold_rounds_to_score_dtype():
+    """A bf16 score equal to bf16(conf_thres) — above conf_thres in f32 —
+    must be gated out in bf16, as the reference's weakly typed compare does
+    (a compare in f32 would keep it)."""
+    conf = 0.003  # bf16 rounds it up, to 0.0030059814453125
+    t16 = float(torch.tensor(conf, dtype=torch.bfloat16))
+    assert t16 > conf
+    b, n, nc = 1, 8, 2
+    obj = np.ones((b, n), np.float32)
+    cls = np.zeros((b, n, nc), np.float32)
+    cls[0, :4, 0] = t16  # exactly bf16(conf) after the cast
+    cls[0, 4:, 1] = 0.5
+    xywh = np.tile(np.array([100, 100, 20, 20], np.float32), (b, n, 1))
+    xywh[0, :, 0] += 40 * np.arange(n, dtype=np.float32)
+    kw = dict(conf_thres=conf, iou_thres=0.6, max_det=16, max_cand=16)
+    (d_ref, v_ref), (d, v) = _both(obj, xywh, cls, True, True, **kw)
+    np.testing.assert_array_equal(v, v_ref)
+    np.testing.assert_array_equal(d, d_ref)
+    assert int(v.sum()) == 4  # boxes 4..7 only; 0..3 sit at the threshold
+
+
+def test_topk1d_is_stable_descending():
+    x = torch.tensor([0.5, 0.9, 0.5, 0.9, -1.0, 0.5])
+    v, i = tnms.topk1d(x, 4)
+    assert torch.equal(v, torch.tensor([0.9, 0.9, 0.5, 0.5]))
+    assert i.tolist() == [1, 3, 0, 2]

@@ -5,9 +5,12 @@
 The same positional arguments and flags as the reference package's
 ``tpu_models/detect.py``, plus ``--device`` (default ``cuda``). Writes one
 ``{image stem}.npy`` (or ``.txt``) per image of normalised
-(cls, x, y, w, h, conf) rows. YOLOv5 n/s/m/l/x is ported; the other
-families, ``--int8``, ``--data-parallel`` and native JAX checkpoints are not
-yet and exit with a message.
+(cls, x, y, w, h, conf) rows. Ported: YOLOv5 n/s/m/l/x (native label space)
+and ``ssd`` (SSDLite320-MobileNetV3-Large) and ``retinanet``
+(RetinaNet-ResNet50-FPN-v2), whose COCO (91) or VOC (21) label ids are
+remapped to the compact YOLO ids. ``faster_rcnn``, ``--int8``,
+``--data-parallel`` and native JAX checkpoints are not yet ported and exit
+with a message.
 """
 
 from __future__ import annotations
@@ -19,7 +22,10 @@ import zipfile
 import numpy as np
 import torch
 
+from ..data.coco_labelmap import coco_to_yolov5
+
 YOLO_MODELS = ("yolov5n", "yolov5s", "yolov5m", "yolov5l", "yolov5x")
+TORCHVISION_MODELS = ("ssd", "retinanet")
 
 
 def load_state_dict(path: str):
@@ -44,21 +50,55 @@ def load_state_dict(path: str):
     return obj
 
 
+def load_torchvision_state_dict(net, sd):
+    """Load a torchvision state_dict (tensors or arrays) by key, strictly;
+    a missing BatchNorm ``num_batches_tracked`` counter is filled with 0."""
+    sd = {k: v.detach().cpu() if torch.is_tensor(v)
+          else torch.as_tensor(np.asarray(v)) for k, v in sd.items()}
+    for key in net.state_dict():
+        if key.endswith("num_batches_tracked") and key not in sd:
+            sd[key] = torch.tensor(0, dtype=torch.long)
+    net.load_state_dict(sd, strict=True)
+    return net
+
+
+def _reduced_tail(sd) -> bool:
+    """An SSDLite state_dict with the reduced MobileNet tail (torchvision's
+    released COCO checkpoint) holds the (480, 80, 1, 1) last-conv weight."""
+    return any(tuple(getattr(v, "shape", ())) == (480, 80, 1, 1)
+               for v in sd.values())
+
+
 def load_detector(model_name: str, model_path: str, num_class: int):
-    """Build a YOLOv5 detector and load weights (random init, seed 0, with a
+    """Build a detector and load weights (random init, seed 0, with a
     warning when no path is given)."""
-    if model_name not in YOLO_MODELS:
+    if model_name not in YOLO_MODELS + TORCHVISION_MODELS:
         raise SystemExit(
             f"Model '{model_name}' is not yet ported to edgeml_tpu_torch "
-            f"(ported: {', '.join(YOLO_MODELS)}).")
-    from ..models.yolov5 import YoloV5
+            f"(ported: {', '.join(YOLO_MODELS + TORCHVISION_MODELS)}).")
+    sd = load_state_dict(model_path) if model_path else None
+    gen = torch.Generator().manual_seed(0)
+    if model_name in YOLO_MODELS:
+        from ..models.yolov5 import YoloV5
 
-    net = YoloV5(variant=model_name[-1], num_classes=num_class,
-                 generator=torch.Generator().manual_seed(0))
-    if model_path:
-        net.load_ultralytics_state_dict(load_state_dict(model_path))
+        net = YoloV5(variant=model_name[-1], num_classes=num_class,
+                     generator=gen)
+        if sd is not None:
+            net.load_ultralytics_state_dict(sd)
+    elif model_name == "ssd":
+        from ..models.ssdlite import SSDLite
+
+        net = SSDLite(num_classes=num_class,
+                      reduced_tail=sd is not None and _reduced_tail(sd),
+                      generator=gen)
     else:
+        from ..models.retinanet import RetinaNet
+
+        net = RetinaNet(num_classes=num_class, generator=gen)
+    if sd is None:
         print("WARNING: no --model-path given; using random weights.")
+    elif model_name in TORCHVISION_MODELS:
+        load_torchvision_state_dict(net, sd)
     return net
 
 
@@ -66,8 +106,11 @@ def main(opts):
     if opts.model in YOLO_MODELS:
         # YOLOv5 operates natively in the compact label space.
         num_class = 80 if opts.dataset == "coco" else 20
+        class_map = None
     else:
         num_class = 91 if opts.dataset == "coco" else 21
+        class_map = (coco_to_yolov5 if opts.dataset == "coco"
+                     else {i: i - 1 for i in range(1, 21 + 1)})
     if opts.int8:
         raise SystemExit("--int8 serving is not yet ported")
     if opts.data_parallel:
@@ -84,6 +127,7 @@ def main(opts):
         conf_thres=opts.conf_thres,
         iou_thres=opts.iou_thres,
         fmt=opts.format,
+        class_map=class_map,
         dtype=torch.bfloat16 if opts.bf16 else None,
         device=opts.device,
     )
@@ -96,7 +140,9 @@ def getargs(argv=None):
     args.add_argument('save_dir', help="Output directory for per-image detection files.")
     args.add_argument('--dataset', type=str, default="coco", help="Label space: 'coco' or 'voc'.")
     args.add_argument('--model', type=str, default="ssd",
-                      help="The object detector. Ported: 'yolov5n'..'yolov5x'.")
+                      help="The object detector. Ported: 'yolov5n'..'yolov5x' "
+                           "(native), 'ssd', 'retinanet' (COCO label "
+                           "space, remapped).")
     args.add_argument("--model-path", type=str, default="",
                       help="Weights file (.pt state_dict or .npz); empty = random init (smoke tests only).")
     args.add_argument('--batch-size', type=int, default=16, help="Inference batch size.")

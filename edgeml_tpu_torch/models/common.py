@@ -1,12 +1,20 @@
 """Detector building blocks in PyTorch (NCHW inside, explicit padding).
 
-Conv + eval BatchNorm + SiLU, the 5x5 stride-1 max pool, nearest 2x upsample
-and the host-side letterbox. BatchNorm in eval mode is computed as
+Conv + eval BatchNorm + SiLU (YOLOv5), Conv + eval BatchNorm + a chosen
+activation named as torchvision's ``Conv2dNormActivation`` (SSDLite), the
+frozen BatchNorm affine and GroupNorm (ResNet-FPN, RetinaNet), convolutions
+that run in their input's dtype, the 5x5 stride-1 max pool, nearest 2x
+upsample and the host-side letterbox. BatchNorm in eval mode is computed as
 ``(x - mean) * rsqrt(var + eps) * scale + bias`` in the activation dtype,
 the reference's formula; a bf16 serving pass runs it in bf16 end to end.
+Every layer here casts its f32 weights to the input's dtype once
+(``CastCache``), so a module serves f32 and bf16 inputs without a copy of
+itself.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -36,6 +44,41 @@ class CastCache:
         return out
 
 
+@torch.no_grad()
+def seeded_init_(module: nn.Module, generator: torch.Generator | None = None):
+    """The reference's init, drawn from ``generator``: conv weights uniform
+    in +-1/sqrt(fan_in) (torch's default conv init), conv biases zero,
+    BatchNorm and GroupNorm identity."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.in_channels // m.groups * m.kernel_size[0] \
+                * m.kernel_size[1]
+            bound = math.sqrt(1.0 / fan_in)
+            m.weight.copy_(torch.empty(m.weight.shape).uniform_(
+                -bound, bound, generator=generator))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+        elif isinstance(m, nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
+def conv_bn_eval(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, cast: CastCache):
+    """conv(x) (no bias) then eval BatchNorm, both in x's dtype."""
+    w, g, b, m, v = cast.get([conv.weight, bn.weight, bn.bias,
+                              bn.running_mean, bn.running_var], x.dtype)
+    y = F.conv2d(x, w, None, conv.stride, conv.padding, 1, conv.groups)
+    inv = torch.rsqrt(v + torch.full((), bn.eps, dtype=v.dtype,
+                                     device=v.device))
+    return (y - m[:, None, None]) * inv[:, None, None] * g[:, None, None] \
+        + b[:, None, None]
+
+
 class ConvBN(nn.Module):
     """Conv2d (no bias) + eval BatchNorm + SiLU, ultralytics naming (``conv``,
     ``bn``) so state_dict keys match yolov5 checkpoints."""
@@ -50,15 +93,111 @@ class ConvBN(nn.Module):
         self._cast = CastCache()
 
     def forward(self, x):
-        w, g, b, m, v = self._cast.get(
-            [self.conv.weight, self.bn.weight, self.bn.bias,
-             self.bn.running_mean, self.bn.running_var], x.dtype)
-        y = F.conv2d(x, w, None, self.conv.stride, self.conv.padding)
-        inv = torch.rsqrt(v + torch.full((), self.bn.eps, dtype=v.dtype,
-                                         device=v.device))
-        y = (y - m[:, None, None]) * inv[:, None, None] * g[:, None, None] \
-            + b[:, None, None]
+        y = conv_bn_eval(x, self.conv, self.bn, self._cast)
         return y * torch.sigmoid(y)
+
+
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def hardswish(x):
+    """x * clip(x + 3, 0, 6) / 6, written out as the reference writes it."""
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "relu6": relu6,
+    "hardswish": hardswish,
+    None: lambda x: x,
+}
+
+
+class DtypeConv2d(nn.Conv2d):
+    """nn.Conv2d that runs in its input's dtype (weight and bias cast once
+    per dtype)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._cast = CastCache()
+
+    def forward(self, x):
+        if self.bias is None:
+            (w,) = self._cast.get([self.weight], x.dtype)
+            return self._conv_forward(x, w, None)
+        w, b = self._cast.get([self.weight, self.bias], x.dtype)
+        return self._conv_forward(x, w, b)
+
+
+class DtypeGroupNorm(nn.GroupNorm):
+    """nn.GroupNorm that runs in its input's dtype."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._cast = CastCache()
+
+    def forward(self, x):
+        w, b = self._cast.get([self.weight, self.bias], x.dtype)
+        return F.group_norm(x, self.num_groups, w, b, self.eps)
+
+
+class ConvNormAct(nn.Sequential):
+    """Conv2d (no bias, padding k // 2, optional groups) + eval BatchNorm +
+    activation ("relu", "relu6", "hardswish" or None), named as torchvision's
+    ``Conv2dNormActivation``: ``0`` the conv, ``1`` the BatchNorm."""
+
+    def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1,
+                 groups: int = 1, act: str | None = "relu",
+                 eps: float = 1e-3, momentum: float = 0.03):
+        super().__init__(
+            nn.Conv2d(cin, cout, k, stride, k // 2, groups=groups,
+                      bias=False),
+            nn.BatchNorm2d(cout, eps=eps, momentum=momentum))
+        if act not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {act!r}")
+        self.act = act
+        self._cast = CastCache()
+
+    def forward(self, x):
+        return ACTIVATIONS[self.act](
+            conv_bn_eval(x, self[0], self[1], self._cast))
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """BatchNorm with fixed statistics (detection backbones never update
+    them): ``x * scale + shift`` with ``scale = weight * rsqrt(var + eps)``
+    and ``shift = bias - mean * scale`` computed in f32 and cast to the
+    input's dtype, the reference's frozen-BN affine.
+
+    Its state_dict keys are BatchNorm2d's (``num_batches_tracked``
+    included, as in a torchvision model built without pretrained weights;
+    ``cli/detect.py load_torchvision_state_dict`` fills the counter in for a
+    checkpoint of torchvision's FrozenBatchNorm2d, which has none)."""
+
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(c))
+        self.register_buffer("bias", torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+        self._affine = {}
+
+    def forward(self, x):
+        src = [self.weight, self.bias, self.running_mean, self.running_var]
+        stamp = tuple((t.data_ptr(), t._version) for t in src)
+        hit = self._affine.get(x.dtype)
+        if hit is None or hit[0] != stamp:
+            w, b, m, v = src
+            scale = w * torch.rsqrt(v + self.eps)
+            shift = b - m * scale
+            hit = (stamp, scale.to(x.dtype)[:, None, None],
+                   shift.to(x.dtype)[:, None, None])
+            self._affine[x.dtype] = hit
+        return x * hit[1] + hit[2]
 
 
 def max_pool_same(x, k: int = 5):

@@ -1,10 +1,14 @@
 """End-to-end detector inference: images -> per-image detection files.
 
-The serving loop is plain: the host decodes and letterboxes one batch (in
-prefetching worker threads), the device runs trunk + decode + NMS + unmap on
-it, and the host writes that batch's files. Output rows are
-(cls, x, y, w, h, conf), xywh-center normalised to the original image size,
-one ``.npy`` or ``.txt`` file per image named after the image stem.
+The serving loop is plain: the host decodes and prepares one batch (in
+prefetching worker threads), the device runs trunk + decode + NMS on it, and
+the host writes that batch's files. YOLOv5 batches are letterboxed and their
+boxes unmapped; SSDLite and RetinaNet batches are square-resized to the
+model's input size and normalised with torchvision's mean/std, so their
+normalised coordinates need no unmap. Output rows are (cls, x, y, w, h,
+conf), xywh-center normalised to the original image size, one ``.npy`` or
+``.txt`` file per image named after the image stem; a ``class_map`` renames
+classes and drops the rows of unmapped ones.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and none asked for they raise.
@@ -18,10 +22,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..data.loader import iter_batches, list_images
+from ..data.loader import iter_batches, list_images, resize_bilinear
 from ..ops.nms import nms_split_batch
 from .common import letterbox_batch
+from .retinanet import RetinaNet, retina_postprocess
+from .ssd_loss import ssd_postprocess
+from .ssdlite import SSDLite
 from .yolov5 import YoloV5
+
+# torchvision's detection-transform normalisation (SSDLite, RetinaNet)
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -99,8 +110,62 @@ def detect_batch(net: YoloV5, images, meta, orig_hw, conf_thres: float,
                       max_det, multi_label)
 
 
+@torch.no_grad()
+def _detect_generic(net, images, conf_thres: float, iou_thres: float,
+                    dtype=None):
+    """SSDLite / RetinaNet: forward + the family's postprocess on a batch of
+    square-resized, normalised images (B, S, S, 3) f32 on their device.
+
+    dtype: None (f32) or torch.bfloat16 for the trunk and heads. SSDLite's
+    head outputs go back to f32 before the postprocess; RetinaNet's
+    postprocess casts only the 2048 rows it gathers.
+    Returns (dets (B, max_det, 6) rows [cls, x, y, w, h, conf] normalised by
+    the input size, valid (B, max_det)). A plain square resize makes
+    normalised coordinates scale-invariant: x / S in model space equals
+    x_orig / w in the image."""
+    x = images if dtype is None else images.to(dtype)
+    anchors = net.anchors(images.device)
+    if isinstance(net, SSDLite):
+        cls_logits, reg = net(x)
+        dets, valid = ssd_postprocess(
+            net, cls_logits.to(torch.float32), reg.to(torch.float32),
+            anchors, score_thresh=conf_thres, nms_thresh=iou_thres)
+    elif isinstance(net, RetinaNet):
+        cls_logits, reg = net(x)
+        dets, valid = retina_postprocess(
+            net, cls_logits, reg, anchors, score_thresh=conf_thres,
+            nms_thresh=iou_thres)
+    else:
+        raise TypeError(f"{type(net).__name__} is not yet ported")
+    s = net.image_size
+    x1, y1, x2, y2 = (dets[..., i] / s for i in range(4))
+    out = torch.stack([dets[..., 5], (x1 + x2) / 2, (y1 + y2) / 2, x2 - x1,
+                       y2 - y1, dets[..., 4]], dim=-1)
+    return out, valid
+
+
+def square_batch(images, size: int):
+    """Host side of SSDLite/RetinaNet serving: each (H, W, 3) image in
+    [0, 1] resized to (size, size) and normalised with torchvision's
+    mean/std; returns (B, size, size, 3) f32."""
+    rs = np.stack([resize_bilinear(np.asarray(im, np.float32), size, size)
+                   for im in images])
+    return (rs - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def map_classes(rows, class_map):
+    """Rows (n, 6) [cls, x, y, w, h, conf] with each class renamed by
+    ``class_map``; rows of a class that maps to -1 or is absent dropped."""
+    cls = np.array([class_map.get(int(c), -1) for c in rows[:, 0]],
+                   np.float32).reshape(-1)
+    keep = cls != -1
+    rows = rows[keep]
+    rows[:, 0] = cls[keep]
+    return rows
+
+
 def run_detection(
-    net: YoloV5,
+    net,
     img_dir: str,
     save_dir: str,
     batch_size: int = 16,
@@ -108,19 +173,26 @@ def run_detection(
     iou_thres: float = 0.6,
     img_size: int = 640,
     fmt: str = "npy",
+    class_map=None,
     dtype=None,
     device=None,
 ):
     """Detect every image in img_dir; save per-image detection files.
 
-    :param net: a YoloV5 module; it is moved to ``device`` (in place).
+    :param net: a YoloV5, SSDLite or RetinaNet module; it is moved to
+        ``device`` (in place).
+    :param img_size: YOLOv5's letterbox size; SSDLite and RetinaNet resize
+        to their own ``image_size``.
+    :param class_map: optional {model class id: output class id}; rows of a
+        class that maps to -1 or is absent are dropped.
     :param dtype: None (f32, TF32 off) or torch.bfloat16 serving.
     :param device: "cuda" (the default when None) or "cpu".
     """
     dev = resolve_device(device)
-    if not isinstance(net, YoloV5):
+    is_yolo = isinstance(net, YoloV5)
+    if not (is_yolo or isinstance(net, (SSDLite, RetinaNet))):
         raise TypeError(f"run_detection: {type(net).__name__} is not yet "
-                        f"ported (YOLOv5 only)")
+                        f"ported (YOLOv5, SSDLite and RetinaNet are)")
     if dev.type == "cuda":
         exact_f32_cuda()
     net.to(dev).eval()
@@ -128,10 +200,14 @@ def run_detection(
     Path(save_dir).mkdir(parents=True, exist_ok=True)
 
     def make_batch(items):
-        """Worker thread: letterbox; pad the tail batch to full size."""
+        """Worker thread: letterbox or square-resize; pad the tail batch to
+        full size."""
         chunk_names = [n for n, _ in items]
         imgs = [im for _, im in items]
         imgs_p = imgs + [imgs[-1]] * (batch_size - len(imgs))
+        if not is_yolo:
+            return chunk_names, square_batch(imgs_p, net.image_size), None, \
+                None
         hw = np.array([im.shape[:2] for im in imgs_p], np.float32)
         lb, meta = letterbox_batch(imgs_p, img_size)
         return chunk_names, lb, meta, hw
@@ -139,6 +215,8 @@ def run_detection(
     def save_batch(chunk_names, dets, valid):
         for bi, name in enumerate(chunk_names):
             rows = dets[bi][valid[bi]]
+            if class_map is not None:
+                rows = map_classes(rows, class_map)
             stem = ".".join(name.split(".")[:-1]) or name
             if fmt == "npy":
                 np.save(os.path.join(save_dir, stem + ".npy"), rows)
@@ -153,8 +231,13 @@ def run_detection(
     for chunk_names, arr, meta, hw in iter_batches(
         img_dir, names, batch_size, make_batch
     ):
-        dets, valid = detect_batch(
-            net, torch.from_numpy(arr).to(dev), torch.from_numpy(meta).to(dev),
-            torch.from_numpy(hw).to(dev), conf_thres, iou_thres, dtype=dtype,
-        )
+        if is_yolo:
+            dets, valid = detect_batch(
+                net, torch.from_numpy(arr).to(dev),
+                torch.from_numpy(meta).to(dev), torch.from_numpy(hw).to(dev),
+                conf_thres, iou_thres, dtype=dtype)
+        else:
+            dets, valid = _detect_generic(
+                net, torch.from_numpy(arr).to(dev), conf_thres, iou_thres,
+                dtype=dtype)
         save_batch(chunk_names, dets.cpu().numpy(), valid.cpu().numpy())

@@ -26,7 +26,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import CastCache, ConvBN, max_pool_same, upsample2x
+from .common import (
+    CastCache, ConvBN, max_pool_same, seeded_init_, upsample2x,
+)
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -197,19 +199,7 @@ class YoloV5(nn.Module):
         default conv init), BatchNorm identity, and yolov5's detect-head
         bias priors (objectness log(8 / (640 / stride)^2), class
         log(0.6 / (nc - 0.99999)))."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.in_channels // m.groups * m.kernel_size[0] \
-                    * m.kernel_size[1]
-                bound = math.sqrt(1.0 / fan_in)
-                w = torch.empty(m.weight.shape).uniform_(
-                    -bound, bound, generator=generator)
-                m.weight.copy_(w)
-            elif isinstance(m, nn.BatchNorm2d):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-                m.running_mean.zero_()
-                m.running_var.fill_(1.0)
+        seeded_init_(self, generator)
         for conv, stride in zip(self.model[24].m, STRIDES):
             b = np.zeros((self.na, self.no), np.float32)
             b[:, 4] = math.log(8 / (self.img_size / stride) ** 2)

@@ -16,7 +16,8 @@ order, the canonical order (score descending, index ascending) that the
 reference's top-k produces on every path. Thresholds are compared in the
 scores' own dtype, as a weakly typed scalar is in the reference.
 
-Suppression runs in ``ops/nms_fused.py``: the CUDA kernel for CUDA tensors,
+Suppression runs in ``ops/nms_fused.py``: a CUDA kernel for CUDA tensors
+(the monolithic one up to K = 1024 candidates, the blocked one up to 2048),
 its plain version for CPU tensors.
 """
 
@@ -24,7 +25,10 @@ from __future__ import annotations
 
 import torch
 
-from .nms_fused import greedy_keep_mask_fused, greedy_keep_mask_plain
+from .nms_fused import (
+    greedy_keep_mask_blocked_plain, greedy_keep_mask_fused,
+    greedy_keep_mask_plain,
+)
 
 MAX_WH = 7680.0  # class-offset stride, matches the yolov5 convention
 
@@ -36,14 +40,22 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
 
 
 def greedy_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
-                     iou_thres: float) -> torch.Tensor:
+                     iou_thres: float, block: int | None = None
+                     ) -> torch.Tensor:
     """Exact greedy-NMS survivor mask of one image.
 
     :param boxes: (K, 4) xyxy, sorted by descending score.
     :param scores: (K,); entries <= 0 never participate.
+    :param block: None for the global fixpoint; a band height for the
+        blocked greedy (K padded to a multiple of it, bands decided in
+        order). The same mask either way.
     :return: (K,) bool.
     """
-    return greedy_keep_mask_plain(boxes[None], scores[None], iou_thres)[0]
+    if not block or block >= boxes.shape[0]:
+        return greedy_keep_mask_plain(boxes[None], scores[None],
+                                      iou_thres)[0]
+    return greedy_keep_mask_blocked_plain(boxes[None], scores[None],
+                                          iou_thres, block)[0]
 
 
 def topk1d(x: torch.Tensor, k: int):
@@ -77,8 +89,9 @@ def _compact(cand_boxes, top_scores, cls_idx, kept, max_det):
 
 
 def _emit_batch(cand_boxes, top_scores, cls_idx, iou_thres, max_det):
-    """Suppression + compaction of (B, K) candidates. The suppressor is the
-    CUDA kernel for CUDA tensors (K <= 1024) and its plain version for CPU
+    """Suppression + compaction of (B, K) candidates. The suppressor is a
+    CUDA kernel for CUDA tensors (K <= 1024 the monolithic one, K <= 2048
+    the blocked one; larger K raises) and its plain version for CPU
     tensors."""
     off = cand_boxes + cls_idx[..., None] * MAX_WH
     kept = greedy_keep_mask_fused(off, top_scores, float(iou_thres))

@@ -192,8 +192,34 @@ def test_detect_cli_refuses_unported_family(tmp_path):
     img_dir.mkdir()
     res = subprocess.run(
         [sys.executable, "-m", "edgeml_tpu_torch.cli.detect", str(img_dir),
-         str(tmp_path / "out"), "--model", "ssd", "--device", "cpu"],
+         str(tmp_path / "out"), "--model", "faster_rcnn", "--device", "cpu"],
         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
         text=True, timeout=120)
     assert res.returncode != 0
     assert "not yet ported" in res.stderr
+
+
+@pytest.mark.parametrize("model", ["ssd", "retinanet"])
+def test_detect_cli_torchvision_families_write_files(tmp_path, model):
+    """python -m edgeml_tpu_torch.cli.detect --model ssd|retinanet --device
+    cpu (random weights, full width) writes one file per image of rows in
+    the compact 80-class space (the COCO 91 -> 80 map applied)."""
+    img_dir = tmp_path / "imgs"
+    img_dir.mkdir()
+    rng = np.random.default_rng(8)
+    np.save(img_dir / "a.npy", (rng.random((48, 64, 3)) * 255).astype(np.uint8))
+    np.save(img_dir / "b.npy", rng.random((80, 40, 3)).astype(np.float32))
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    out = tmp_path / "out"
+    subprocess.run(
+        [sys.executable, "-m", "edgeml_tpu_torch.cli.detect", str(img_dir),
+         str(out), "--model", model, "--device", "cpu", "--batch-size", "2"],
+        check=True, cwd=REPO, env=env, timeout=300)
+    assert sorted(os.listdir(out)) == ["a.npy", "b.npy"]
+    for name in ("a.npy", "b.npy"):
+        rows = np.load(out / name)
+        assert rows.ndim == 2 and rows.shape[1] == 6 and rows.shape[0] > 0
+        assert np.all((rows[:, 0] >= 0) & (rows[:, 0] < 80))
+        assert np.all(rows[:, 0] == np.round(rows[:, 0]))
+        assert np.all((rows[:, 1:5] >= 0) & (rows[:, 1:5] <= 1))
+        assert np.all(np.diff(rows[:, 5]) <= 0)  # conf descending

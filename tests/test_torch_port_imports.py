@@ -28,7 +28,10 @@ def test_import_pulls_in_no_jax():
     """A fresh interpreter imports the package and every module of it; no
     jax* module and no module of the JAX package may be loaded."""
     mods = _port_modules()
-    assert "edgeml_tpu_torch.ops.nms_fused" in mods
+    for m in ("ops.nms_fused", "models.mobilenetv3", "models.ssdlite",
+              "models.ssd_loss", "models.resnet", "models.retinanet",
+              "data.coco_labelmap"):
+        assert "edgeml_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -97,11 +100,15 @@ def test_run_detection_without_device_needs_cuda(tmp_path, monkeypatch):
 def test_cuda_wrapper_refuses_cpu_tensors():
     """The kernel wrapper launches on CUDA tensors only; it never computes a
     result for CPU tensors itself (that is the plain version's job)."""
-    from edgeml_tpu_torch.ops.nms_fused import MAX_K, greedy_keep_mask_cuda
+    from edgeml_tpu_torch.ops.nms_fused import (
+        MAX_K, MAX_K_BLOCKED, greedy_keep_mask_blocked_cuda,
+        greedy_keep_mask_cuda,
+    )
 
-    before = greedy_keep_mask_cuda.launches
-    with pytest.raises(ValueError, match="CUDA"):
-        greedy_keep_mask_cuda(torch.zeros(1, 8, 4),
-                              torch.zeros(1, 8, dtype=torch.bool), 0.5)
-    assert greedy_keep_mask_cuda.launches == before
-    assert MAX_K == 1024
+    for wrapper in (greedy_keep_mask_cuda, greedy_keep_mask_blocked_cuda):
+        before = wrapper.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            wrapper(torch.zeros(1, 8, 4),
+                    torch.zeros(1, 8, dtype=torch.bool), 0.5)
+        assert wrapper.launches == before
+    assert MAX_K == 1024 and MAX_K_BLOCKED == 2048

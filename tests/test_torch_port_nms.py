@@ -17,10 +17,12 @@ import jax.numpy as jnp
 
 from edgeml_tpu.ops.nms import MAX_WH, greedy_keep_mask
 from edgeml_tpu.ops.nms import nms_split_batch as jax_nms_split_batch
+from edgeml_tpu.ops.nms import topk1d as jax_topk1d
 from edgeml_tpu.ops.nms_fused import greedy_keep_mask_fused as jax_fused
 from edgeml_tpu_torch.ops import nms as tnms
 from edgeml_tpu_torch.ops.nms_fused import (
-    greedy_keep_mask_fused, greedy_keep_mask_plain,
+    greedy_keep_mask_blocked_plain, greedy_keep_mask_fused,
+    greedy_keep_mask_plain,
 )
 
 torch.set_num_threads(1)
@@ -224,3 +226,80 @@ def test_topk1d_is_stable_descending():
     v, i = tnms.topk1d(x, 4)
     assert torch.equal(v, torch.tensor([0.9, 0.9, 0.5, 0.5]))
     assert i.tolist() == [1, 3, 0, 2]
+
+
+@pytest.mark.parametrize("k", [1280, 1536, 2048])
+@pytest.mark.parametrize("seed,spread,ncls", REGIMES)
+def test_keep_mask_blocked_plain_matches_jax(seed, spread, ncls, k):
+    """K in (1024, 2048], the blocked suppressor's range: the plain blocked
+    and global masks == JAX greedy_keep_mask(block=256) ==
+    vmap(greedy_keep_mask), bit for bit; the CPU dispatch of the entry point
+    takes the blocked plain version there."""
+    thr = 0.6 if seed != 1 else 0.45
+    off, sc = fuzz_boxes(seed + k, 2, k, spread, ncls)
+    jb, js = jnp.asarray(off), jnp.asarray(sc)
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda bb, ss: greedy_keep_mask(bb, ss, thr)))(jb, js))
+    want_blk = np.asarray(jax.jit(jax.vmap(
+        lambda bb, ss: greedy_keep_mask(bb, ss, thr, block=256)))(jb, js))
+    np.testing.assert_array_equal(want_blk, want)
+    tb, ts = torch.from_numpy(off), torch.from_numpy(sc)
+    got = greedy_keep_mask_blocked_plain(tb, ts, thr).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(greedy_keep_mask_plain(tb, ts, thr).numpy(),
+                                  want)
+    np.testing.assert_array_equal(greedy_keep_mask_fused(tb, ts, thr).numpy(),
+                                  want)
+    np.testing.assert_array_equal(
+        tnms.greedy_keep_mask(tb[1], ts[1], thr, block=256).numpy(), want[1])
+    assert want.sum() > 0
+    if ncls < 80:  # the dense regimes: some candidates are suppressed
+        assert want.sum() < (sc > 0).sum()
+
+
+def test_keep_mask_blocked_matches_interpret_mode_kernel():
+    """The blocked plain version == the reference's blocked Pallas kernel
+    (_kernel_blocked) run in interpret mode at K = 2048, on clustered boxes
+    (long suppression chains) with an invalid tail."""
+    rng = np.random.default_rng(2048)
+    b, k, hot = 2, 2048, 400
+    centers = rng.uniform(50, 600, (b, hot, 2))
+    idx = rng.integers(0, hot, (b, k))
+    c = np.take_along_axis(centers, idx[..., None], axis=1) \
+        + rng.normal(0, 6, (b, k, 2))
+    wh = np.exp(rng.uniform(np.log(10), np.log(80), (b, k, 2)))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    scores = np.sort(rng.random((b, k)).astype(np.float32))[:, ::-1].copy()
+    scores[:, -k // 8:] = 0.0
+    want = np.asarray(jax_fused(jnp.asarray(boxes), jnp.asarray(scores), 0.55,
+                                interpret=True))
+    got = greedy_keep_mask_blocked_plain(torch.from_numpy(boxes),
+                                         torch.from_numpy(scores), 0.55)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.sum() < (scores > 0).sum()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_nms_split_batch_max_cand_2048_matches_jax(bf16):
+    """max_cand = 2048 (the SSDLite/RetinaNet tail): exact pair ranking over
+    2048 boxes and the K = 2048 suppressor, bit for bit against JAX."""
+    rng = np.random.default_rng(2048 + bf16)
+    obj, xywh, cls = make_case(rng, 2, 3000, 8)
+    kw = dict(conf_thres=1e-3, iou_thres=0.55, max_det=300, max_cand=2048)
+    (d_ref, v_ref), (d, v) = _both(obj, xywh, cls, bf16, False, **kw)
+    assert v_ref.sum() > 100
+    np.testing.assert_array_equal(v, v_ref)
+    np.testing.assert_array_equal(d, d_ref)
+
+
+def test_topk1d_ties_at_retinanet_width():
+    """N = 76,725 (RetinaNet's anchors at 640 px) with heavy ties: the stable
+    sort's order equals the reference's chunked topk1d (lowest index first
+    within a tie), values and indices."""
+    rng = np.random.default_rng(76725)
+    x = rng.choice(np.linspace(0.0, 1.0, 97).astype(np.float32), 76725)
+    x[rng.random(76725) < 0.3] = -1.0
+    v_ref, i_ref = jax_topk1d(jnp.asarray(x), 2048, chunk=10240)
+    v, i = tnms.topk1d(torch.from_numpy(x), 2048)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))

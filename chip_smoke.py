@@ -14,7 +14,18 @@ what comes out:
   * SSDLite320-MobileNetV3-Large serving (91 classes, COCO -> 80 class map)
     in f32 and bf16, through the blocked suppressor kernel (K = 2048);
   * RetinaNet-ResNet50-FPN-v2 serving (91 classes, 640) in f32, through the
-    blocked kernel, and one device-resident batch timed in f32 and bf16.
+    blocked kernel, and one device-resident batch timed in f32 and bf16;
+  * Faster R-CNN-ResNet50-FPN-v2 serving (91 classes, 640, 1000 proposals,
+    100 detections) in f32 (traced), through the sequential suppressor
+    kernel (RPN proposals, all images and levels in one launch), the row
+    gathers and the blocked kernel (final NMS, K = 2048); one
+    device-resident batch timed stage by stage in f32 and bf16; its
+    proposal and final tails rerun with the plain versions.
+
+The sequential suppressor is also held against its plain version and the
+fixpoint ``suppress_mask`` at the RPN's shape, and the row gather against
+``torch.gather`` (times the scale) at YOLOv5's and Faster R-CNN's shapes.
+The YOLOv5, SSDLite and RetinaNet tails run the row-gather kernel too.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase prints one line; any failure exits non-zero. The last
@@ -43,12 +54,19 @@ H100_F32_OPS = 67e12  # non-tensor f32 FLOP/s, H100 SXM data sheet
 H100_BYTES = 3.35e12  # HBM3 bytes/s
 OPS_PER_PAIR = 15  # IoU + compare per (suppressor, target) pair, as in the kernel
 OPS_PER_BOX = 5  # area per box
+# sequential suppressor, per live candidate per step: IoU + compare (15) and
+# the argmax's compare and select (2)
+OPS_PER_LIVE = 17
 BATCH = 64
 N_IMAGES = 256
 RETINA_BATCH = 16
 RETINA_IMAGES = 64
 BLOCKED_KS = (1280, 1536, 2048)
 SHAPES = [(480, 640), (640, 427), (640, 640), (500, 375)]
+SEQ_SEGMENTS = 80  # 16 images x 5 RPN levels
+SEQ_K = 1000  # proposals per level entering the RPN suppressor
+FRCNN_BATCH = 16
+FRCNN_IMAGES = 64
 
 
 def line(tag, **kw):
@@ -117,6 +135,78 @@ def fuzz(seed, b, k, spread, ncls, max_wh):
     boxes = np.concatenate([xy - wh / 2, xy + wh / 2], axis=-1)
     return (boxes + cls[..., None] * np.float32(max_wh)).astype(np.float32), \
         scores
+
+
+def seq_candidates(seed, s, k, regime):
+    """Unsorted candidates of positive area over s segments for the
+    sequential suppressor: dense RPN-like overlap, sparse boxes, or tie
+    clusters of sigmoid scores saturated to exactly 1.0; a fifth dead."""
+    rng = np.random.default_rng(seed)
+    spread = {"dense": 120.0, "sparse": 2000.0, "ties": 300.0}[regime]
+    c = rng.uniform(0, spread, (s, k, 2))
+    wh = rng.uniform(8, 150, (s, k, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    if regime == "ties":
+        logits = rng.choice([30.0, 30.0, 2.0, 0.5, -3.0], (s, k))
+        scores = (1 / (1 + np.exp(-logits))).astype(np.float32)
+    else:
+        scores = rng.random((s, k)).astype(np.float32)
+    scores[rng.random((s, k)) < 0.2] = 0.0
+    return boxes, scores
+
+
+def seq_bound_ms(boxes, scores, picks, thr):
+    """Least time for the sequential suppressor on these inputs: the bytes
+    (boxes and scores read once, kept and picks written once) over the HBM
+    rate, against the f32 operations this data needs over the non-tensor
+    f32 rate: OPS_PER_LIVE for every (step, candidate still live at that
+    step) and the areas. A candidate is live from step 0 up to the step
+    that picks or suppresses it. Returns (ms, "bytes"|"operations", live
+    pairs, picks, most picks of a segment)."""
+    import torch
+
+    s_, k = scores.shape
+    p = picks.shape[1]
+    n_picks = (picks >= 0).sum(dim=1)
+    pb = boxes.gather(1, picks.clamp_min(0).long()[..., None].expand(
+        s_, p, 4))  # (S, P, 4)
+    x1, y1, x2, y2 = (boxes[:, None, :, i] for i in range(4))
+    area = (x2 - x1) * (y2 - y1)
+    px1, py1, px2, py2 = (pb[:, :, None, i] for i in range(4))
+    parea = (px2 - px1) * (py2 - py1)
+    inter = torch.clamp_min(torch.minimum(px2, x2) - torch.maximum(px1, x1),
+                            0) * torch.clamp_min(
+        torch.minimum(py2, y2) - torch.maximum(py1, y1), 0)
+    iou = inter / torch.clamp_min(parea + area - inter, 1e-12)
+    step = torch.arange(p, device=boxes.device)
+    lane = torch.arange(k, device=boxes.device)
+    done = (step[None, :] < n_picks[:, None])[..., None]  # (S, P, 1)
+    hit = ((iou > thr) | (picks.long()[..., None] == lane)) & done
+    # live steps: up to and including the first hit, else every step
+    first = torch.where(hit.any(dim=1), hit.int().argmax(dim=1) + 1,
+                        n_picks[:, None].expand(s_, k))
+    live = float(torch.where(scores > 0, first, 0).sum())
+    ops = OPS_PER_LIVE * live + OPS_PER_BOX * s_ * k
+    nbytes = s_ * k * (16 + 4 + 1) + s_ * p * 4
+    t_ops, t_bytes = ops / H100_F32_OPS, nbytes / H100_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", int(live),
+            int(n_picks.sum()), int(n_picks.max()))
+
+
+def gather_bound_ms(src, idx, scale, out):
+    """Least time for the row gather: the distinct source rows (and scales)
+    it needs and the indices read once, the output written once, over the
+    HBM rate (a multiply per element at most: bytes bound it)."""
+    import torch
+
+    b = idx.shape[0]
+    rows = sum(int(torch.unique(idx[i]).numel()) for i in range(b))
+    nbytes = rows * src.shape[2] * src.element_size() \
+        + idx.numel() * idx.element_size() \
+        + out.numel() * out.element_size() \
+        + (0 if scale is None else rows * scale.element_size())
+    return nbytes / H100_BYTES * 1e3, "bytes"
 
 
 def seeded_yolov5(variant, seed, calib, device):
@@ -235,6 +325,86 @@ def seeded_retinanet(seed, calib, device):
     return net
 
 
+def seeded_faster_rcnn(seed, calib, device):
+    """Faster R-CNN-ResNet50-FPN-v2 (91 classes, 640, 1000 proposals, 100
+    detections) at full width with weights from a seeded generator, the
+    BatchNorm statistics of the body, the FPN and the box head taken from
+    one calibration batch (so activations stay near unit scale and the RPN
+    proposals and box scores are real), and the box predictor's biases
+    spread from the seed."""
+    import torch
+    import torch.nn.functional as F
+
+    from edgeml_tpu_torch.models.common import ConvNormAct, FrozenBatchNorm2d
+    from edgeml_tpu_torch.models.faster_rcnn import FasterRCNN
+
+    g = torch.Generator().manual_seed(seed)
+    net = FasterRCNN(num_classes=91, image_size=640, generator=g).to(device)
+
+    def set_stats(bn, y):
+        bn.running_mean.copy_(y.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(
+            y.var(dim=(0, 2, 3), unbiased=False).clamp_min(1e-3))
+
+    def frozen_stats(mod, args):
+        set_stats(mod, args[0])
+
+    def conv_norm_stats(mod, args):
+        conv = mod[0]
+        set_stats(mod[1], F.conv2d(args[0], conv.weight, None, conv.stride,
+                                   conv.padding, 1, conv.groups))
+
+    hooks = [m.register_forward_pre_hook(frozen_stats)
+             for m in net.modules() if isinstance(m, FrozenBatchNorm2d)]
+    hooks += [m.register_forward_pre_hook(conv_norm_stats)
+              for m in net.modules() if isinstance(m, ConvNormAct)]
+    net.detect(calib)
+    for h in hooks:
+        h.remove()
+    with torch.no_grad():
+        pred = net.roi_heads.box_predictor
+        pred.cls_score.bias.copy_(
+            torch.empty(91).uniform_(-2.0, 2.0, generator=g).to(device))
+        pred.bbox_pred.bias.copy_(
+            (torch.randn(364, generator=g) * 0.1).to(device))
+    return net
+
+
+class plain_kernels:
+    """Within the block, the Faster R-CNN path and the NMS tail call the
+    plain versions instead of the kernels (module attributes swapped and
+    restored), so one run of each can be compared on the same inputs."""
+
+    def __enter__(self):
+        from edgeml_tpu_torch.models import faster_rcnn as tfr
+        from edgeml_tpu_torch.ops import nms
+        from edgeml_tpu_torch.ops.gather import gather_rows_plain
+        from edgeml_tpu_torch.ops.nms_fused import (
+            MAX_K, greedy_keep_mask_blocked_plain, greedy_keep_mask_plain,
+        )
+        from edgeml_tpu_torch.ops.nms_seq import suppress_mask_seq_plain
+
+        def fused_plain(boxes, scores, iou_thres):
+            if boxes.shape[1] <= MAX_K:
+                return greedy_keep_mask_plain(boxes, scores, iou_thres)
+            return greedy_keep_mask_blocked_plain(boxes, scores, iou_thres)
+
+        self.saved = []
+        for mod, name, fn in ((tfr, "gather_rows", gather_rows_plain),
+                              (tfr, "suppress_mask_seq",
+                               suppress_mask_seq_plain),
+                              (nms, "gather_rows", gather_rows_plain),
+                              (nms, "greedy_keep_mask_fused", fused_plain)):
+            self.saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
 def make_images(img_dir, seed):
     rng = np.random.default_rng(seed)
     os.makedirs(img_dir)
@@ -300,7 +470,7 @@ def main():
 
     # ---- phase 1: device and build (one nvcc per source, in parallel) -----
     t0 = time.perf_counter()
-    _build.build(["nms_fused", "nms_blocked"])
+    _build.build(["nms_fused", "nms_blocked", "nms_seq", "gather_rows"])
     build_s = time.perf_counter() - t0
     line("device", name=repr(kind), count=count, smi=repr(smi),
          torch=torch.__version__, cuda=torch.version.cuda,
@@ -365,6 +535,10 @@ def main():
             del boxes, scores, got, want
     torch.cuda.empty_cache()
 
+    seq_phase(dev)
+    gather_record = gather_phase(dev)
+    torch.cuda.empty_cache()
+
     tmp = os.path.join(ROOT, ".smoke_tmp")
     shutil.rmtree(tmp, ignore_errors=True)
     try:
@@ -373,6 +547,7 @@ def main():
         records = [serving_phases(dev, tmp, img_dir, shapes),
                    ssd_phases(dev, tmp, img_dir, shapes)]
         retina_phases(dev, tmp, img_dir, shapes)
+        records += frcnn_phases(dev, tmp, img_dir, shapes, gather_record)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"kernels": records}), flush=True)
@@ -381,23 +556,26 @@ def main():
                                              "count": count}}), flush=True)
 
 
-def reset_counts():
+def _wrappers():
+    from edgeml_tpu_torch.ops.gather import gather_rows_cuda
     from edgeml_tpu_torch.ops.nms_fused import (
         greedy_keep_mask_blocked_cuda, greedy_keep_mask_cuda,
     )
+    from edgeml_tpu_torch.ops.nms_seq import suppress_mask_seq_cuda
 
-    greedy_keep_mask_cuda.launches = 0
-    greedy_keep_mask_blocked_cuda.launches = 0
+    return (greedy_keep_mask_cuda, greedy_keep_mask_blocked_cuda,
+            suppress_mask_seq_cuda, gather_rows_cuda)
+
+
+def reset_counts():
+    for w in _wrappers():
+        w.launches = 0
 
 
 def counts():
-    """(monolithic, blocked) suppressor launches since reset_counts()."""
-    from edgeml_tpu_torch.ops.nms_fused import (
-        greedy_keep_mask_blocked_cuda, greedy_keep_mask_cuda,
-    )
-
-    return greedy_keep_mask_cuda.launches, \
-        greedy_keep_mask_blocked_cuda.launches
+    """(monolithic, blocked, sequential, gather) kernel launches since
+    reset_counts()."""
+    return tuple(w.launches for w in _wrappers())
 
 
 def traced(tag, run):
@@ -505,10 +683,12 @@ def serving_phases(dev, tmp, img_dir, shapes):
                       device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, blocked = counts()
-        if launches != n_batches or blocked != 0:
-            fail(f"{label}: suppressor kernels launched {launches} + "
-                 f"{blocked} times for {n_batches} batches")
+        launches, blocked, seq, gathers = counts()
+        if (launches, blocked, seq, gathers) != (n_batches, 0, 0,
+                                                 3 * n_batches):
+            fail(f"{label}: kernels launched {launches} + {blocked} + {seq} "
+                 f"+ {gathers} times for {n_batches} batches (want "
+                 f"{n_batches} + 0 + 0 + {3 * n_batches})")
         # scores are compared with the threshold in their own dtype
         conf_t = float(torch.tensor(conf, dtype=dtype or torch.float32))
         n_rows = check_files(out_dir, shapes, 80, conf_t)
@@ -704,10 +884,11 @@ def ssd_phases(dev, tmp, img_dir, shapes):
                       class_map=coco_to_yolov5, dtype=dtype, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        mono, blocked = counts()
-        if blocked != n_batches or mono != 0:
-            fail(f"ssd {label}: suppressor kernels launched {mono} + "
-                 f"{blocked} times for {n_batches} batches")
+        mono, blocked, seq, gathers = counts()
+        if (mono, blocked, seq, gathers) != (0, n_batches, 0,
+                                             3 * n_batches):
+            fail(f"ssd {label}: kernels launched {mono} + {blocked} + {seq} "
+                 f"+ {gathers} times for {n_batches} batches")
         launches[label] = blocked
         n_rows = check_files(out_dir, shapes, 80, conf)
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -805,10 +986,10 @@ def retina_phases(dev, tmp, img_dir, shapes):
                   device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    mono, blocked = counts()
-    if blocked != n_batches or mono != 0:
-        fail(f"retinanet: suppressor kernels launched {mono} + {blocked} "
-             f"times for {n_batches} batches")
+    mono, blocked, seq, gathers = counts()
+    if (mono, blocked, seq, gathers) != (0, n_batches, 0, 3 * n_batches):
+        fail(f"retinanet: kernels launched {mono} + {blocked} + {seq} + "
+             f"{gathers} times for {n_batches} batches")
     n_rows = check_files(out_dir, shapes[:RETINA_IMAGES], 80, conf)
     peak = torch.cuda.max_memory_allocated() / 2**30
     line("retina_serve_f32", images=RETINA_IMAGES, batch=RETINA_BATCH,
@@ -840,6 +1021,337 @@ def retina_phases(dev, tmp, img_dir, shapes):
     blocked_tail_check("retina_tail_kernel_vs_plain",
                        *retina_nms_inputs(net, c, r, anchors, conf), conf,
                        iou)
+
+
+def seq_phase(dev):
+    """Phase 2c: the sequential suppressor against its plain version and
+    the fixpoint ``suppress_mask`` at the RPN's shape (80 segments = 16
+    images x 5 levels, K = 1000) in three regimes, at IoU 0.7 and 0.5."""
+    import torch
+
+    from edgeml_tpu_torch.ops import nms
+    from edgeml_tpu_torch.ops.nms_seq import (
+        suppress_mask_seq, suppress_mask_seq_cuda, suppress_mask_seq_plain,
+    )
+
+    for ri, regime in enumerate(("dense", "sparse", "ties")):
+        bx, sc = seq_candidates(ri, SEQ_SEGMENTS, SEQ_K, regime)
+        boxes = torch.from_numpy(bx).to(dev)
+        scores = torch.from_numpy(sc).to(dev)
+        for thr in (0.7, 0.5):
+            before = suppress_mask_seq_cuda.launches
+            kept, picks = suppress_mask_seq(boxes, scores, thr, SEQ_K)
+            torch.cuda.synchronize()
+            if suppress_mask_seq_cuda.launches != before + 1:
+                fail("the sequential suppressor kernel did not launch")
+            p_kept, p_picks = suppress_mask_seq_plain(boxes, scores, thr,
+                                                      SEQ_K)
+            if not (torch.equal(kept, p_kept) and torch.equal(picks,
+                                                              p_picks)):
+                fail(f"sequential kernel != plain ({regime}, thr {thr}): "
+                     f"{int((kept != p_kept).sum())} mask entries, "
+                     f"{int((picks != p_picks).sum())} picks differ")
+            if not torch.equal(kept, nms.suppress_mask(boxes, scores, thr,
+                                                       SEQ_K)):
+                fail(f"sequential kernel != fixpoint suppress_mask "
+                     f"({regime}, thr {thr})")
+            k_ms = cuda_ms(lambda: suppress_mask_seq_cuda(boxes, scores, thr,
+                                                          SEQ_K), 20)
+            p_ms = cuda_ms(lambda: suppress_mask_seq_plain(boxes, scores,
+                                                           thr, SEQ_K), 2,
+                           warmup=1)
+            bound, by, live, n_picks, most = seq_bound_ms(boxes, scores,
+                                                          picks, thr)
+            line("seq_vs_plain", regime=regime, thr=thr,
+                 segments=SEQ_SEGMENTS, k=SEQ_K, equal=True,
+                 valid=int((scores > 0).sum()), kept=int(kept.sum()),
+                 picks=n_picks, most_picks=most, live_pairs=live,
+                 kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.3f}",
+                 bound_ms=f"{bound:.4f}", bound_by=by)
+        del boxes, scores, kept, picks, p_kept, p_picks
+
+
+def gather_phase(dev):
+    """Phase 2d: the row gather against its plain version (``torch.gather``,
+    times the scale), bit for bit, at YOLOv5's tail (B = 64, N = 25,200,
+    C = 80, K = 1024, scaled, f32 and bf16) and Faster R-CNN's ``nms_rows``
+    gather (B = 16, N = 90,000, C = 4, K = 2048). Returns the kernel's
+    record at the Faster R-CNN shape (its launches filled in later)."""
+    import torch
+
+    from edgeml_tpu_torch.ops.gather import (
+        gather_rows, gather_rows_cuda, gather_rows_plain,
+    )
+
+    record = None
+    rng = np.random.default_rng(11)
+    for tag, b, n, c, k, dtype, scaled in (
+            ("yolo_f32", 64, 25200, 80, 1024, torch.float32, True),
+            ("yolo_bf16", 64, 25200, 80, 1024, torch.bfloat16, True),
+            ("frcnn_rows", 16, 90000, 4, 2048, torch.float32, False)):
+        src = torch.from_numpy(rng.random((b, n, c), np.float32)).to(
+            dev, dtype)
+        idx = torch.from_numpy(rng.integers(0, n, (b, k))).to(dev)
+        scale = torch.from_numpy(rng.random((b, n), np.float32)).to(
+            dev, dtype) if scaled else None
+        before = gather_rows_cuda.launches
+        got = gather_rows(src, idx, scale)
+        torch.cuda.synchronize()
+        if gather_rows_cuda.launches != before + 1:
+            fail(f"gather {tag}: the kernel did not launch")
+        want = gather_rows_plain(src, idx, scale)
+        if not (got.dtype == want.dtype and torch.equal(got, want)):
+            fail(f"gather {tag}: kernel != plain")
+        err = float((got.float() - want.float()).abs().max())
+        k_ms = cuda_ms(lambda: gather_rows_cuda(src, idx, scale), 50)
+        p_ms = cuda_ms(lambda: gather_rows_plain(src, idx, scale), 50)
+        full = idx[..., None].expand(b, k, c)
+        lib_ms = cuda_ms(lambda: torch.gather(src, 1, full), 50)
+        bound, by = gather_bound_ms(src, idx, scale, got)
+        line("gather_vs_plain", shape=tag, batch=b, n=n, c=c, k=k,
+             dtype=str(dtype).split(".")[-1], scaled=scaled, equal=True,
+             kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+             library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.5f}",
+             bound_by=by)
+        if tag == "frcnn_rows":
+            record = {
+                "name": "gather_rows",
+                "route": "cuda",
+                "source": "edgeml_tpu_torch/csrc/gather_rows.cu",
+                "replaces": "tools/gather_pallas_kernel.py:32",
+                "launches": None,
+                "max_abs_err": err,
+                "ms": k_ms,
+                "plain_ms": p_ms,
+                "bound_ms": bound,
+                "bound_by": by,
+                "library_ms": lib_ms,
+            }
+        del src, idx, scale, got, want, full
+    return record
+
+
+def frcnn_phases(dev, tmp, img_dir, shapes, gather_record):
+    """Phase 9: Faster R-CNN-ResNet50-FPN-v2 serving over FRCNN_IMAGES
+    images at batch FRCNN_BATCH in f32 (launch counts exact, files
+    checked), a traced run, one device-resident batch timed stage by stage
+    in f32 and bf16, and the proposal and final tails against their plain
+    reruns. Returns the records of the sequential suppressor and of the row
+    gather."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from edgeml_tpu_torch.data.coco_labelmap import coco_to_yolov5
+    from edgeml_tpu_torch.data.loader import decode_image
+    from edgeml_tpu_torch.models import faster_rcnn as tfr
+    from edgeml_tpu_torch.models.infer import (
+        _detect_generic, run_detection, square_batch,
+    )
+    from edgeml_tpu_torch.ops import nms
+    from edgeml_tpu_torch.ops.nms_fused import greedy_keep_mask_blocked_cuda
+    from edgeml_tpu_torch.ops.nms_seq import (
+        suppress_mask_seq_cuda, suppress_mask_seq_plain,
+    )
+
+    names = sorted(os.listdir(img_dir))[:FRCNN_IMAGES]
+    sub_dir = os.path.join(tmp, "images_frcnn")
+    os.makedirs(sub_dir)
+    for n in names:
+        shutil.copy(os.path.join(img_dir, n), sub_dir)
+    first = [decode_image(os.path.join(img_dir, n))
+             for n in names[:FRCNN_BATCH]]
+    x = torch.from_numpy(square_batch(first, 640)).to(dev)
+    net = seeded_faster_rcnn(5, x, dev)
+    conf, iou = 0.001, 0.6
+
+    # a small-input reference: the card's f32 trunk and RPN head against
+    # the CPU's
+    cpu_net = copy.deepcopy(net).cpu()
+    with torch.no_grad():
+        ref = cpu_net.run_rpn(cpu_net.features(x[:1].cpu()))
+        got = net.run_rpn(net.features(x[:1]))
+    err = max(float((a.cpu() - b).abs().max())
+              for ga, ra in zip(got, ref) for a, b in zip(ga, ra))
+    scale = max(float(b.abs().max()) for ra in ref for b in ra)
+    line("frcnn_rpn_vs_cpu", images=1, max_abs_err=f"{err:.3e}",
+         max_abs=f"{scale:.3f}", tol="1e-3 x max_abs")
+    if not err < 1e-3 * scale:
+        fail("Faster R-CNN f32 RPN outputs on the card disagree with the CPU")
+    del cpu_net, ref
+
+    _detect_generic(net, x, conf, iou)  # warm-up
+    torch.cuda.synchronize()
+    n_batches = math.ceil(FRCNN_IMAGES / FRCNN_BATCH)
+    out_dir = os.path.join(tmp, "frcnn_f32")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    run_detection(net, sub_dir, out_dir, batch_size=FRCNN_BATCH,
+                  conf_thres=conf, iou_thres=iou, class_map=coco_to_yolov5,
+                  device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mono, blocked, seq, gathers = counts()
+    if (mono, blocked, seq, gathers) != (0, n_batches, n_batches,
+                                         5 * n_batches):
+        fail(f"faster_rcnn: kernels launched {mono} + {blocked} + {seq} + "
+             f"{gathers} times for {n_batches} batches (want 0 + "
+             f"{n_batches} + {n_batches} + {5 * n_batches})")
+    n_rows = check_files(out_dir, shapes[:FRCNN_IMAGES], 80, conf)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    line("frcnn_serve_f32", images=FRCNN_IMAGES, batch=FRCNN_BATCH,
+         files=FRCNN_IMAGES, rows=n_rows, seq_launches=seq,
+         blocked_launches=blocked, gather_launches=gathers,
+         e2e_img_s=f"{FRCNN_IMAGES / wall:.1f}", peak_gib=f"{peak:.2f}")
+    launches = {"seq": seq, "gather": gathers}
+
+    traced("frcnn_trace_f32", lambda: run_detection(
+        net, sub_dir, os.path.join(tmp, "frcnn_traced"),
+        batch_size=FRCNN_BATCH, conf_thres=conf, iou_thres=iou,
+        class_map=coco_to_yolov5, device="cuda"))
+
+    with torch.no_grad():
+        with FlopCounterMode(display=False) as fc:
+            net.run_rpn(net.features(x[:1]))
+        trunk_gflop = fc.get_total_flops() / 1e9
+        feats = net.features(x[:1])
+        boxes1, _ = net.proposals(*net.run_rpn(feats))
+        pooled1 = net.roi_align(feats[:4], boxes1, tfr.ROI_PYR)
+        with FlopCounterMode(display=False) as fc:
+            net.box_head(pooled1)
+        head_gflop = fc.get_total_flops() / 1e9
+        del feats, boxes1, pooled1
+
+        b = FRCNN_BATCH
+        for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            xd = x if dtype is None else x.to(dtype)
+            pyr = tfr.ROI_PYR if dtype is None else None
+            torch.cuda.reset_peak_memory_stats()
+            dets, valid = _detect_generic(net, x, conf, iou, dtype=dtype)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if not (torch.isfinite(dets).all() and int(valid.sum()) > 0):
+                fail(f"faster_rcnn {label}: no finite detections")
+            feats = net.features(xd)
+            objs, regs = net.run_rpn(feats)
+            boxes, pvalid = net.proposals(objs, regs)
+            pooled = net.roi_align(feats[:4], boxes, pyr)
+            cls, reg = net.box_head(pooled, dtype)
+            cls, reg = cls.view(b, -1, 91), reg.view(b, -1, 91, 4)
+            trunk_ms = cuda_ms(lambda: net.run_rpn(net.features(xd)), 3)
+            prop_ms = cuda_ms(lambda: net.proposals(objs, regs), 5)
+            roi_ms = cuda_ms(lambda: net.roi_align(feats[:4], boxes, pyr), 3)
+            head_ms = cuda_ms(lambda: net.box_head(pooled, dtype), 3)
+            tail_ms = cuda_ms(lambda: net.postprocess(
+                cls, reg, boxes, pvalid, conf, iou), 5)
+            dev_ms = cuda_ms(lambda: _detect_generic(net, x, conf, iou,
+                                                     dtype=dtype), 3)
+            line(f"frcnn_device_{label}", batch=b, rows=int(valid.sum()),
+                 proposals=int(pvalid.sum()), device_batch_ms=f"{dev_ms:.3f}",
+                 device_img_s=f"{b / dev_ms * 1e3:.1f}",
+                 trunk_rpn_ms=f"{trunk_ms:.3f}", proposals_ms=f"{prop_ms:.3f}",
+                 roi_align_ms=f"{roi_ms:.3f}", box_head_ms=f"{head_ms:.3f}",
+                 final_tail_ms=f"{tail_ms:.3f}",
+                 trunk_gflop_per_img=f"{trunk_gflop:.3f}",
+                 trunk_tflop_s=f"{trunk_gflop * b / trunk_ms:.2f}",
+                 box_head_gflop_per_img=f"{head_gflop:.3f}",
+                 box_head_tflop_s=f"{head_gflop * b / head_ms:.2f}",
+                 peak_gib=f"{peak:.2f}")
+            if dtype is None:
+                f32_state = (objs, regs, boxes, pvalid, cls, reg)
+            del feats, pooled
+
+        # the proposal and final tails against their plain reruns
+        objs, regs, boxes, pvalid, cls, reg = f32_state
+        seen = {}
+
+        def recording(mod, name):
+            real = getattr(mod, name)
+
+            def fn(*args):
+                seen[name] = args
+                return real(*args)
+
+            setattr(mod, name, fn)
+            return real
+
+        reset_counts()
+        real_seq = recording(tfr, "suppress_mask_seq")
+        real_fused = recording(nms, "greedy_keep_mask_fused")
+        try:
+            k_boxes, k_valid = net.proposals(objs, regs)
+            k_dets, k_dvalid = net.postprocess(cls, reg, boxes, pvalid, conf,
+                                               iou)
+        finally:
+            tfr.suppress_mask_seq = real_seq
+            nms.greedy_keep_mask_fused = real_fused
+        torch.cuda.synchronize()
+        if counts() != (0, 1, 1, 5):
+            fail(f"faster_rcnn tails: kernels launched {counts()}, want "
+                 f"(0, 1, 1, 5)")
+        reset_counts()
+        with plain_kernels():
+            p_boxes, p_valid = net.proposals(objs, regs)
+            p_dets, p_dvalid = net.postprocess(cls, reg, boxes, pvalid, conf,
+                                               iou)
+        if counts() != (0, 0, 0, 0):
+            fail("faster_rcnn plain tails launched a kernel")
+        if not (torch.equal(k_boxes, p_boxes) and torch.equal(k_valid,
+                                                              p_valid)):
+            fail("faster_rcnn proposals: kernel and plain disagree")
+        if not (torch.equal(k_dets, p_dets) and torch.equal(k_dvalid,
+                                                            p_dvalid)):
+            fail("faster_rcnn final tail: kernel and plain disagree")
+
+        # the sequential suppressor at the main path's shape and data
+        seg_boxes, seg_scores, thr, max_keep = seen["suppress_mask_seq"]
+        kept, picks = suppress_mask_seq_cuda(seg_boxes, seg_scores, thr,
+                                             max_keep)
+        p_kept, p_picks = suppress_mask_seq_plain(seg_boxes, seg_scores, thr,
+                                                  max_keep)
+        if not (torch.equal(kept, p_kept) and torch.equal(picks, p_picks)):
+            fail("faster_rcnn RPN segments: sequential kernel != plain")
+        n_valid = int((seg_scores > 0).sum())
+        if not 0 < int(kept.sum()) < n_valid:
+            fail("faster_rcnn RPN segments: degenerate, nothing suppressed")
+        seq_ms = cuda_ms(lambda: suppress_mask_seq_cuda(
+            seg_boxes, seg_scores, thr, max_keep), 20)
+        seq_plain_ms = cuda_ms(lambda: suppress_mask_seq_plain(
+            seg_boxes, seg_scores, thr, max_keep), 2, warmup=1)
+        bound, by, live, n_picks, most = seq_bound_ms(seg_boxes, seg_scores,
+                                                      picks, thr)
+        # the blocked suppressor on the final tail (K = 2048)
+        off, top, iou_f = seen["greedy_keep_mask_fused"]
+        off, fvalid = off.contiguous(), (top > 0).contiguous()
+        if off.shape[1] != 2048 or not bool(fvalid.all()):
+            fail("faster_rcnn final tail: not K = 2048 real candidates")
+        blocked_ms = cuda_ms(lambda: greedy_keep_mask_blocked_cuda(
+            off, fvalid, iou_f), 20)
+        blocked_bound, blocked_by = suppressor_bound_ms(off, top)
+        line("frcnn_tails_kernel_vs_plain", batch=b, proposals_equal=True,
+             dets_equal=True, segments=tuple(seg_scores.shape)[0],
+             k=tuple(seg_scores.shape)[1], candidates=n_valid,
+             kept=int(kept.sum()), picks=n_picks, most_picks=most,
+             live_pairs=live, seq_kernel_ms=f"{seq_ms:.4f}",
+             seq_plain_ms=f"{seq_plain_ms:.3f}", seq_bound_ms=f"{bound:.4f}",
+             seq_bound_by=by, rows=int(k_dvalid.sum()),
+             blocked_kernel_ms=f"{blocked_ms:.4f}",
+             blocked_bound_ms=f"{blocked_bound:.4f}",
+             blocked_bound_by=blocked_by)
+
+    gather_record["launches"] = launches["gather"]
+    return [{
+        "name": "nms_seq_suppress",
+        "route": "cuda",
+        "source": "edgeml_tpu_torch/csrc/nms_seq.cu",
+        "replaces": "edgeml_tpu/ops/nms_pallas.py:29",
+        "launches": launches["seq"],
+        "max_abs_err": int((kept.int() - p_kept.int()).abs().max()),
+        "ms": seq_ms,
+        "plain_ms": seq_plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+    }, gather_record]
 
 
 if __name__ == "__main__":

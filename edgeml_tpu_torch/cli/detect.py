@@ -6,11 +6,12 @@ The same positional arguments and flags as the reference package's
 ``tpu_models/detect.py``, plus ``--device`` (default ``cuda``). Writes one
 ``{image stem}.npy`` (or ``.txt``) per image of normalised
 (cls, x, y, w, h, conf) rows. Ported: YOLOv5 n/s/m/l/x (native label space)
-and ``ssd`` (SSDLite320-MobileNetV3-Large) and ``retinanet``
-(RetinaNet-ResNet50-FPN-v2), whose COCO (91) or VOC (21) label ids are
-remapped to the compact YOLO ids. ``faster_rcnn``, ``--int8``,
-``--data-parallel`` and native JAX checkpoints are not yet ported and exit
-with a message.
+and the torchvision trio ``ssd`` (SSDLite320-MobileNetV3-Large),
+``retinanet`` (RetinaNet-ResNet50-FPN-v2) and ``faster_rcnn``
+(Faster R-CNN-ResNet50-FPN-v2), whose COCO (91) or VOC (21) label ids are
+remapped to the compact YOLO ids; their weights load from torchvision
+state_dicts by key. ``--int8``, ``--data-parallel`` and native JAX
+checkpoints are not yet ported and exit with a message.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from ..data.coco_labelmap import coco_to_yolov5
 
 YOLO_MODELS = ("yolov5n", "yolov5s", "yolov5m", "yolov5l", "yolov5x")
-TORCHVISION_MODELS = ("ssd", "retinanet")
+TORCHVISION_MODELS = ("ssd", "retinanet", "faster_rcnn")
 
 
 def load_state_dict(path: str):
@@ -91,10 +92,14 @@ def load_detector(model_name: str, model_path: str, num_class: int):
         net = SSDLite(num_classes=num_class,
                       reduced_tail=sd is not None and _reduced_tail(sd),
                       generator=gen)
-    else:
+    elif model_name == "retinanet":
         from ..models.retinanet import RetinaNet
 
         net = RetinaNet(num_classes=num_class, generator=gen)
+    else:
+        from ..models.faster_rcnn import FasterRCNN
+
+        net = FasterRCNN(num_classes=num_class, generator=gen)
     if sd is None:
         print("WARNING: no --model-path given; using random weights.")
     elif model_name in TORCHVISION_MODELS:
@@ -141,8 +146,8 @@ def getargs(argv=None):
     args.add_argument('--dataset', type=str, default="coco", help="Label space: 'coco' or 'voc'.")
     args.add_argument('--model', type=str, default="ssd",
                       help="The object detector. Ported: 'yolov5n'..'yolov5x' "
-                           "(native), 'ssd', 'retinanet' (COCO label "
-                           "space, remapped).")
+                           "(native), 'ssd', 'retinanet', 'faster_rcnn' "
+                           "(COCO or VOC label space, remapped).")
     args.add_argument("--model-path", type=str, default="",
                       help="Weights file (.pt state_dict or .npz); empty = random init (smoke tests only).")
     args.add_argument('--batch-size', type=int, default=16, help="Inference batch size.")

@@ -1,9 +1,10 @@
 """Detector building blocks in PyTorch (NCHW inside, explicit padding).
 
 Conv + eval BatchNorm + SiLU (YOLOv5), Conv + eval BatchNorm + a chosen
-activation named as torchvision's ``Conv2dNormActivation`` (SSDLite), the
-frozen BatchNorm affine and GroupNorm (ResNet-FPN, RetinaNet), convolutions
-that run in their input's dtype, the 5x5 stride-1 max pool, nearest 2x
+activation named as torchvision's ``Conv2dNormActivation`` (SSDLite, the
+Faster R-CNN FPN and box head), the frozen BatchNorm affine and GroupNorm
+(ResNet-FPN, RetinaNet), convolutions and linear layers that run in their
+input's dtype, the 5x5 stride-1 max pool, nearest 2x
 upsample and the host-side letterbox. BatchNorm in eval mode is computed as
 ``(x - mean) * rsqrt(var + eps) * scale + bias`` in the activation dtype,
 the reference's formula; a bf16 serving pass runs it in bf16 end to end.
@@ -130,6 +131,19 @@ class DtypeConv2d(nn.Conv2d):
         return self._conv_forward(x, w, b)
 
 
+class DtypeLinear(nn.Linear):
+    """nn.Linear that runs in its input's dtype (weight and bias cast once
+    per dtype)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._cast = CastCache()
+
+    def forward(self, x):
+        w, b = self._cast.get([self.weight, self.bias], x.dtype)
+        return F.linear(x, w, b)
+
+
 class DtypeGroupNorm(nn.GroupNorm):
     """nn.GroupNorm that runs in its input's dtype."""
 
@@ -162,6 +176,29 @@ class ConvNormAct(nn.Sequential):
     def forward(self, x):
         return ACTIVATIONS[self.act](
             conv_bn_eval(x, self[0], self[1], self._cast))
+
+
+@torch.no_grad()
+def load_jax_conv(conv: nn.Conv2d, p, bn: nn.Module | None = None):
+    """Copy the reference's conv ``p`` (HWIO kernel ``w``, bias ``b``) into
+    ``conv``. Where torchvision's layout has no conv bias but a BatchNorm
+    ``bn`` after the conv (the reference folds that norm into the conv),
+    the norm becomes an exact identity that adds the bias: weight 1, mean
+    0, var 1 - eps (f32), so that var + eps and its rsqrt are exactly 1 and
+    the output is conv + bias, bit for bit."""
+    conv.weight.copy_(torch.from_numpy(
+        np.array(p["w"], dtype=np.float32)).permute(3, 2, 0, 1))
+    b = torch.from_numpy(np.array(p["b"], dtype=np.float32))
+    if bn is None:
+        conv.bias.copy_(b)
+        return
+    var = np.float32(1.0) - np.float32(bn.eps)
+    if var + np.float32(bn.eps) != np.float32(1.0):
+        raise ValueError(f"no exact identity variance for eps {bn.eps}")
+    bn.weight.fill_(1.0)
+    bn.bias.copy_(b)
+    bn.running_mean.zero_()
+    bn.running_var.fill_(float(var))
 
 
 class FrozenBatchNorm2d(nn.Module):

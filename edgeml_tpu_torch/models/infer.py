@@ -3,12 +3,12 @@
 The serving loop is plain: the host decodes and prepares one batch (in
 prefetching worker threads), the device runs trunk + decode + NMS on it, and
 the host writes that batch's files. YOLOv5 batches are letterboxed and their
-boxes unmapped; SSDLite and RetinaNet batches are square-resized to the
-model's input size and normalised with torchvision's mean/std, so their
-normalised coordinates need no unmap. Output rows are (cls, x, y, w, h,
-conf), xywh-center normalised to the original image size, one ``.npy`` or
-``.txt`` file per image named after the image stem; a ``class_map`` renames
-classes and drops the rows of unmapped ones.
+boxes unmapped; SSDLite, RetinaNet and Faster R-CNN batches are
+square-resized to the model's input size and normalised with torchvision's
+mean/std, so their normalised coordinates need no unmap. Output rows are
+(cls, x, y, w, h, conf), xywh-center normalised to the original image
+size, one ``.npy`` or ``.txt`` file per image named after the image stem; a
+``class_map`` renames classes and drops the rows of unmapped ones.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and none asked for they raise.
@@ -25,12 +25,14 @@ import torch
 from ..data.loader import iter_batches, list_images, resize_bilinear
 from ..ops.nms import nms_split_batch
 from .common import letterbox_batch
+from .faster_rcnn import FasterRCNN
 from .retinanet import RetinaNet, retina_postprocess
 from .ssd_loss import ssd_postprocess
 from .ssdlite import SSDLite
 from .yolov5 import YoloV5
 
-# torchvision's detection-transform normalisation (SSDLite, RetinaNet)
+# torchvision's detection-transform normalisation (SSDLite, RetinaNet,
+# Faster R-CNN)
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
@@ -113,28 +115,33 @@ def detect_batch(net: YoloV5, images, meta, orig_hw, conf_thres: float,
 @torch.no_grad()
 def _detect_generic(net, images, conf_thres: float, iou_thres: float,
                     dtype=None):
-    """SSDLite / RetinaNet: forward + the family's postprocess on a batch of
-    square-resized, normalised images (B, S, S, 3) f32 on their device.
+    """SSDLite / RetinaNet / Faster R-CNN: forward + the family's
+    postprocess on a batch of square-resized, normalised images
+    (B, S, S, 3) f32 on their device.
 
     dtype: None (f32) or torch.bfloat16 for the trunk and heads. SSDLite's
     head outputs go back to f32 before the postprocess; RetinaNet's
-    postprocess casts only the 2048 rows it gathers.
+    postprocess casts only the 2048 rows it gathers; Faster R-CNN keeps
+    every decision in f32 (``FasterRCNN.detect``).
     Returns (dets (B, max_det, 6) rows [cls, x, y, w, h, conf] normalised by
     the input size, valid (B, max_det)). A plain square resize makes
     normalised coordinates scale-invariant: x / S in model space equals
     x_orig / w in the image."""
     x = images if dtype is None else images.to(dtype)
-    anchors = net.anchors(images.device)
     if isinstance(net, SSDLite):
         cls_logits, reg = net(x)
         dets, valid = ssd_postprocess(
             net, cls_logits.to(torch.float32), reg.to(torch.float32),
-            anchors, score_thresh=conf_thres, nms_thresh=iou_thres)
+            net.anchors(images.device), score_thresh=conf_thres,
+            nms_thresh=iou_thres)
     elif isinstance(net, RetinaNet):
         cls_logits, reg = net(x)
         dets, valid = retina_postprocess(
-            net, cls_logits, reg, anchors, score_thresh=conf_thres,
-            nms_thresh=iou_thres)
+            net, cls_logits, reg, net.anchors(images.device),
+            score_thresh=conf_thres, nms_thresh=iou_thres)
+    elif isinstance(net, FasterRCNN):
+        dets, valid = net.detect(x, score_thresh=conf_thres,
+                                 nms_thresh=iou_thres, dtype=dtype)
     else:
         raise TypeError(f"{type(net).__name__} is not yet ported")
     s = net.image_size
@@ -145,9 +152,9 @@ def _detect_generic(net, images, conf_thres: float, iou_thres: float,
 
 
 def square_batch(images, size: int):
-    """Host side of SSDLite/RetinaNet serving: each (H, W, 3) image in
-    [0, 1] resized to (size, size) and normalised with torchvision's
-    mean/std; returns (B, size, size, 3) f32."""
+    """Host side of SSDLite/RetinaNet/Faster R-CNN serving: each (H, W, 3)
+    image in [0, 1] resized to (size, size) and normalised with
+    torchvision's mean/std; returns (B, size, size, 3) f32."""
     rs = np.stack([resize_bilinear(np.asarray(im, np.float32), size, size)
                    for im in images])
     return (rs - IMAGENET_MEAN) / IMAGENET_STD
@@ -179,10 +186,10 @@ def run_detection(
 ):
     """Detect every image in img_dir; save per-image detection files.
 
-    :param net: a YoloV5, SSDLite or RetinaNet module; it is moved to
-        ``device`` (in place).
-    :param img_size: YOLOv5's letterbox size; SSDLite and RetinaNet resize
-        to their own ``image_size``.
+    :param net: a YoloV5, SSDLite, RetinaNet or FasterRCNN module; it is
+        moved to ``device`` (in place).
+    :param img_size: YOLOv5's letterbox size; the other families resize to
+        their own ``image_size``.
     :param class_map: optional {model class id: output class id}; rows of a
         class that maps to -1 or is absent are dropped.
     :param dtype: None (f32, TF32 off) or torch.bfloat16 serving.
@@ -190,9 +197,10 @@ def run_detection(
     """
     dev = resolve_device(device)
     is_yolo = isinstance(net, YoloV5)
-    if not (is_yolo or isinstance(net, (SSDLite, RetinaNet))):
+    if not (is_yolo or isinstance(net, (SSDLite, RetinaNet, FasterRCNN))):
         raise TypeError(f"run_detection: {type(net).__name__} is not yet "
-                        f"ported (YOLOv5, SSDLite and RetinaNet are)")
+                        f"ported (YOLOv5, SSDLite, RetinaNet and Faster "
+                        f"R-CNN are)")
     if dev.type == "cuda":
         exact_f32_cuda()
     net.to(dev).eval()

@@ -183,30 +183,7 @@ class RetinaNet(nn.Module):
             if mod.bias is not None:
                 mod.bias.copy_(arr(p["b"]))
 
-        def frozen(conv_mod, bn, p):
-            conv_mod.weight.copy_(arr(p["w"]).permute(3, 2, 0, 1))
-            bn.weight.copy_(arr(p["g"]))
-            bn.bias.copy_(arr(p["b"]))
-            bn.running_mean.copy_(arr(p["m"]))
-            bn.running_var.copy_(arr(p["v"]))
-
-        bp = params["backbone"]
-        body = self.backbone.body
-        frozen(body.conv1, body.bn1, bp["stem"])
-        for si, blocks in enumerate(bp["stages"]):
-            for blk, p in zip(getattr(body, f"layer{si + 1}"), blocks):
-                frozen(blk.conv1, blk.bn1, p["conv1"])
-                frozen(blk.conv2, blk.bn2, p["conv2"])
-                frozen(blk.conv3, blk.bn3, p["conv3"])
-                if "down" in p:
-                    frozen(blk.downsample[0], blk.downsample[1], p["down"])
-        fpn = self.backbone.fpn
-        for mod, p in zip(fpn.inner_blocks, bp["fpn_lateral"]):
-            conv(mod[0], p)
-        for mod, p in zip(fpn.layer_blocks, bp["fpn_output"]):
-            conv(mod[0], p)
-        conv(fpn.extra_blocks.p6, bp["p6"])
-        conv(fpn.extra_blocks.p7, bp["p7"])
+        self.backbone.from_jax_params(params["backbone"])
         for head, tower, out, out_key in (
                 (self.head.classification_head, "cls_tower", "cls_logits",
                  "cls_out"),

@@ -18,13 +18,21 @@ scores' own dtype, as a weakly typed scalar is in the reference.
 
 Suppression runs in ``ops/nms_fused.py``: a CUDA kernel for CUDA tensors
 (the monolithic one up to K = 1024 candidates, the blocked one up to 2048),
-its plain version for CPU tensors.
+its plain version for CPU tensors. The row gathers of the candidates run in
+``ops/gather.py`` the same way (a kernel for CUDA tensors).
+
+``suppress_mask`` (greedy survivors of unsorted candidates, capped at
+``max_keep`` picks) and ``nms_rows`` (class-aware NMS over pre-scored
+(box, class) rows, Faster R-CNN's final tail) complete the reference's
+contract; the RPN's own suppressor is the sequential kernel of
+``ops/nms_seq.py``, which gives the same masks as ``suppress_mask``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .gather import gather_rows
 from .nms_fused import (
     greedy_keep_mask_blocked_plain, greedy_keep_mask_fused,
     greedy_keep_mask_plain,
@@ -99,8 +107,9 @@ def _emit_batch(cand_boxes, top_scores, cls_idx, iou_thres, max_det):
 
 
 def _gather_rows(x, idx):
-    """x (B, N, C) rows at idx (B, K) -> (B, K, C)."""
-    return x.gather(1, idx[..., None].expand(*idx.shape, x.shape[-1]))
+    """x (B, N, C) rows at idx (B, K) -> (B, K, C), through the row-gather
+    kernel for CUDA tensors."""
+    return gather_rows(x, idx)
 
 
 def _rank_pairs_exact(obj, xywh, cls, conf_thres, max_cand):
@@ -117,8 +126,8 @@ def _rank_pairs_exact(obj, xywh, cls, conf_thres, max_cand):
         best, -1.0)
     best_top, box_pre = topk1d(box_score, kb)
     xywh_pre = _gather_rows(xywh, box_pre)
-    obj_pre = obj.gather(1, box_pre)
-    cls_conf = _gather_rows(cls, box_pre) * obj_pre[..., None]
+    # the class rows times their box's objectness, in one gather
+    cls_conf = gather_rows(cls, box_pre, scale=obj)
     flat = torch.where(
         (best_top[..., None] > 0) & (cls_conf > _scalar(conf_thres, cls_conf)),
         cls_conf, -1.0).reshape(b, -1)
@@ -183,4 +192,51 @@ def nms_split_batch(
     cand_boxes, top_scores, cls_idx = candidates(
         obj, xywh, cls, conf_thres, max_cand, multi_label)
     return _emit_batch(cand_boxes, top_scores, cls_idx, float(iou_thres),
+                       max_det)
+
+
+def suppress_mask(boxes: torch.Tensor, scores: torch.Tensor,
+                  iou_thres: float, max_keep: int) -> torch.Tensor:
+    """Greedy-NMS survivors of UNSORTED candidates as a bool mask in the
+    original order, at most the first ``max_keep`` greedy picks (RPN
+    proposal filtering), in the reference's fixpoint form: a stable
+    descending sort, the global keep mask, a cumulative-sum cap. Plain
+    PyTorch ops on any device; the same mask as the sequential suppressor
+    (``ops/nms_seq.py``) wherever every live box has a positive area.
+
+    :param boxes: (K, 4) or (B, K, 4) xyxy.
+    :param scores: (K,) or (B, K); only entries > 0 participate.
+    :return: (K,) or (B, K) bool.
+    """
+    single = boxes.dim() == 2
+    if single:
+        boxes, scores = boxes[None], scores[None]
+    k = scores.shape[-1]
+    order_scores, order = topk1d(torch.where(scores > 0, scores, -1.0), k)
+    ordered = boxes.gather(1, order[..., None].expand(*order.shape, 4))
+    kept = greedy_keep_mask_plain(ordered, order_scores, float(iou_thres))
+    kept &= (torch.cumsum(kept.to(torch.int64), dim=-1) - 1) < max_keep
+    out = torch.zeros_like(kept).scatter(1, order, kept)
+    return out[0] if single else out
+
+
+def nms_rows(boxes: torch.Tensor, scores: torch.Tensor,
+             cls_ids: torch.Tensor, iou_thres: float = 0.5,
+             max_det: int = 300, max_cand: int = 2048):
+    """Batched class-aware greedy NMS over pre-scored (box, class) rows.
+
+    The top ``max_cand`` rows by score (stable order) are gathered and
+    suppressed by the batched suppressor (at K = 2048 the blocked kernel
+    for CUDA tensors).
+
+    :param boxes: (B, N, 4) xyxy f32.
+    :param scores: (B, N); entries <= 0 are ignored.
+    :param cls_ids: (B, N) float class ids (class-aware offsets).
+    :return: (dets (B, max_det, 6) [x1, y1, x2, y2, score, cls], valid).
+    """
+    k = min(max_cand, scores.shape[-1])
+    top_scores, top_idx = topk1d(torch.where(scores > 0, scores, -1.0), k)
+    cand_boxes = gather_rows(boxes, top_idx)
+    cand_cls = gather_rows(cls_ids[..., None], top_idx)[..., 0]
+    return _emit_batch(cand_boxes, top_scores, cand_cls, float(iou_thres),
                        max_det)

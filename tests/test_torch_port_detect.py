@@ -188,21 +188,24 @@ def test_detect_cli_writes_files(tmp_path):
 
 
 def test_detect_cli_refuses_unported_family(tmp_path):
+    """A detector family the port does not have exits with a message (all
+    of the reference's families are ported; this one is not among them)."""
     img_dir = tmp_path / "imgs"
     img_dir.mkdir()
     res = subprocess.run(
         [sys.executable, "-m", "edgeml_tpu_torch.cli.detect", str(img_dir),
-         str(tmp_path / "out"), "--model", "faster_rcnn", "--device", "cpu"],
+         str(tmp_path / "out"), "--model", "yolov8n", "--device", "cpu"],
         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
         text=True, timeout=120)
     assert res.returncode != 0
     assert "not yet ported" in res.stderr
 
 
-@pytest.mark.parametrize("model", ["ssd", "retinanet"])
+@pytest.mark.parametrize("model", ["ssd", "retinanet", "faster_rcnn"])
 def test_detect_cli_torchvision_families_write_files(tmp_path, model):
-    """python -m edgeml_tpu_torch.cli.detect --model ssd|retinanet --device
-    cpu (random weights, full width) writes one file per image of rows in
+    """python -m edgeml_tpu_torch.cli.detect --model ssd|retinanet|
+    faster_rcnn --device cpu (random weights, full width) writes one file
+    per image of rows in
     the compact 80-class space (the COCO 91 -> 80 map applied)."""
     img_dir = tmp_path / "imgs"
     img_dir.mkdir()

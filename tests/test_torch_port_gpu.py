@@ -1,6 +1,7 @@
 """The port on a CUDA device: the suppressor kernels (monolithic, K <= 1024;
-blocked, K <= 2048) against their plain versions, and the serving slices
-(YOLOv5, SSDLite) through them.
+blocked, K <= 2048; sequential, per segment K <= 1024) and the row-gather
+kernel against their plain versions, and the serving slices (YOLOv5,
+SSDLite, Faster R-CNN) through them.
 
 Marked ``gpu``; the ``cuda`` fixture skips every test where no CUDA device is
 present (decided when the test runs, never at import). Run on the card with
@@ -15,10 +16,17 @@ import numpy as np
 import pytest
 import torch
 
+from edgeml_tpu_torch.models import faster_rcnn as tfr
 from edgeml_tpu_torch.ops import nms as tnms
+from edgeml_tpu_torch.ops.gather import (
+    gather_rows, gather_rows_cuda, gather_rows_plain,
+)
 from edgeml_tpu_torch.ops.nms_fused import (
     greedy_keep_mask_blocked_cuda, greedy_keep_mask_blocked_plain,
     greedy_keep_mask_cuda, greedy_keep_mask_fused, greedy_keep_mask_plain,
+)
+from edgeml_tpu_torch.ops.nms_seq import (
+    suppress_mask_seq, suppress_mask_seq_cuda, suppress_mask_seq_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -199,3 +207,169 @@ def test_ssdlite_run_detection_on_cuda(cuda, tmp_path):
         assert a.shape[1] == 6 and a.shape[0] > 0
         assert np.all((a[:, 1:5] >= 0) & (a[:, 1:5] <= 1))
         assert np.all((a[:, 0] >= 0) & (a[:, 0] < 4))
+
+
+def seq_candidates(seed, s, k, regime):
+    """Unsorted candidates of positive area over s segments: dense
+    RPN-like overlap, sparse, or tie clusters of saturated 1.0 scores."""
+    rng = np.random.default_rng(seed)
+    spread = {"dense": 120.0, "sparse": 2000.0, "ties": 300.0}[regime]
+    c = rng.uniform(0, spread, (s, k, 2))
+    wh = rng.uniform(8, 150, (s, k, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    if regime == "ties":
+        logits = rng.choice([30.0, 30.0, 2.0, 0.5, -3.0], (s, k))
+        scores = (1 / (1 + np.exp(-logits))).astype(np.float32)
+    else:
+        scores = rng.random((s, k)).astype(np.float32)
+    scores[rng.random((s, k)) < 0.2] = 0.0
+    return torch.from_numpy(boxes), torch.from_numpy(scores)
+
+
+@pytest.mark.parametrize("k", [1024, 1000, 300, 33])
+@pytest.mark.parametrize("regime", ["dense", "sparse", "ties"])
+@pytest.mark.parametrize("thr", [0.7, 0.5])
+def test_seq_kernel_equals_plain(cuda, k, regime, thr):
+    """The sequential kernel's kept masks and picks equal the plain loop's
+    on the card and on the CPU, at max_keep 8 and K."""
+    boxes, scores = seq_candidates(k, 16, k, regime)
+    boxes, scores = boxes.to(cuda), scores.to(cuda)
+    for max_keep in (8, k):
+        before = suppress_mask_seq_cuda.launches
+        kept, picks = suppress_mask_seq(boxes, scores, thr, max_keep)
+        torch.cuda.synchronize()
+        assert suppress_mask_seq_cuda.launches == before + 1
+        want_kept, want_picks = suppress_mask_seq_plain(boxes, scores, thr,
+                                                        max_keep)
+        assert torch.equal(kept, want_kept)
+        assert torch.equal(picks, want_picks)
+        cpu_kept, cpu_picks = suppress_mask_seq_plain(
+            boxes.cpu(), scores.cpu(), thr, max_keep)
+        assert torch.equal(kept.cpu(), cpu_kept)
+        assert torch.equal(picks.cpu(), cpu_picks)
+        if max_keep == k:
+            assert torch.equal(kept, tnms.suppress_mask(boxes, scores, thr,
+                                                        k))
+
+
+def test_seq_kernel_rejects_large_k(cuda):
+    boxes, scores = seq_candidates(0, 2, 1025, "sparse")
+    before = suppress_mask_seq_cuda.launches
+    with pytest.raises(ValueError, match="1025"):
+        suppress_mask_seq(boxes.to(cuda), scores.to(cuda), 0.7, 10)
+    assert suppress_mask_seq_cuda.launches == before
+
+
+@pytest.mark.parametrize("src_dt,scale_dt", [
+    (torch.float32, None), (torch.bfloat16, None),
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("c", [1, 4, 80, 91])
+@pytest.mark.parametrize("idx_dt", [torch.int32, torch.int64])
+def test_gather_kernel_equals_plain(cuda, src_dt, scale_dt, c, idx_dt):
+    rng = np.random.default_rng(c)
+    b, n, k = 3, 5000, 700
+    src = torch.from_numpy(rng.normal(0, 1, (b, n, c)).astype(
+        np.float32)).to(cuda, src_dt)
+    idx = torch.from_numpy(rng.integers(0, n, (b, k))).to(cuda, idx_dt)
+    scale = None if scale_dt is None else torch.from_numpy(
+        rng.random((b, n)).astype(np.float32)).to(cuda, scale_dt)
+    before = gather_rows_cuda.launches
+    got = gather_rows(src, idx, scale)
+    torch.cuda.synchronize()
+    assert gather_rows_cuda.launches == before + 1
+    want = gather_rows_plain(src, idx, scale)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(got.cpu(), gather_rows_plain(
+        src.cpu(), idx.cpu(), None if scale is None else scale.cpu()))
+
+
+def test_gather_kernel_strided_sources(cuda):
+    """An expanded source (image stride 0) and a channel slice (row stride
+    > C) are read in place."""
+    rng = np.random.default_rng(9)
+    anc = torch.from_numpy(rng.random((900, 4)).astype(np.float32)).to(cuda)
+    wide = torch.from_numpy(rng.random((3, 900, 91)).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 900, (3, 256))).to(cuda)
+    for src in (anc.expand(3, -1, -1), wide[..., 1:]):
+        assert torch.equal(gather_rows(src, idx), gather_rows_plain(src, idx))
+
+
+class _Plain:
+    """Route the Faster R-CNN path's kernel calls to the plain versions (on
+    whatever device the tensors are), so the two can be compared."""
+
+    def __init__(self, monkeypatch):
+        def fused_plain(boxes, scores, iou_thres):
+            if boxes.shape[1] <= 1024:
+                return greedy_keep_mask_plain(boxes, scores, iou_thres)
+            return greedy_keep_mask_blocked_plain(boxes, scores, iou_thres)
+
+        monkeypatch.setattr(tfr, "gather_rows", gather_rows_plain)
+        monkeypatch.setattr(tfr, "suppress_mask_seq", suppress_mask_seq_plain)
+        monkeypatch.setattr(tnms, "gather_rows", gather_rows_plain)
+        monkeypatch.setattr(tnms, "greedy_keep_mask_fused", fused_plain)
+
+
+def _counts():
+    return (suppress_mask_seq_cuda.launches,
+            greedy_keep_mask_blocked_cuda.launches,
+            greedy_keep_mask_cuda.launches, gather_rows_cuda.launches)
+
+
+def test_faster_rcnn_tails_kernel_equals_plain(cuda, monkeypatch):
+    """Proposals (sequential kernel, gathers) and the final tail (blocked
+    kernel at K = 2048, gathers) equal their plain reruns on the same head
+    outputs; one launch of each suppressor per batch."""
+    net = tfr.FasterRCNN(num_classes=6, image_size=128,
+                         generator=torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (2, 128, 128, 3)).astype(np.float32)).to(cuda)
+    with torch.no_grad():
+        feats = net.features(x)
+        objs, regs = net.run_rpn(feats)
+        before = _counts()
+        boxes, valid = net.proposals(objs, regs)
+        pooled = net.roi_align(feats[:4], boxes)
+        cls, reg = net.box_head(pooled)
+        cls, reg = cls.view(2, 1000, -1), reg.view(2, 1000, -1, 4)
+        dets, dvalid = net.postprocess(cls, reg, boxes, valid, 0.001, 0.5)
+        torch.cuda.synchronize()
+        after = _counts()
+        assert (after[0] - before[0], after[1] - before[1],
+                after[2] - before[2], after[3] - before[3]) == (1, 1, 0, 5)
+        _Plain(monkeypatch)
+        p_boxes, p_valid = net.proposals(objs, regs)
+        p_dets, p_dvalid = net.postprocess(cls, reg, boxes, valid, 0.001,
+                                           0.5)
+        assert _counts() == after
+    assert torch.equal(boxes, p_boxes) and torch.equal(valid, p_valid)
+    assert torch.equal(dets, p_dets) and torch.equal(dvalid, p_dvalid)
+    assert int(valid.sum()) > 100 and int(dvalid.sum()) > 0
+
+
+def test_faster_rcnn_run_detection_on_cuda(cuda, tmp_path):
+    """Faster R-CNN serving on the card: the sequential and blocked kernels
+    once per batch each, every file written."""
+    from edgeml_tpu_torch.models.infer import run_detection
+
+    img_dir = tmp_path / "imgs"
+    img_dir.mkdir()
+    rng = np.random.default_rng(2)
+    for i in range(5):
+        np.save(img_dir / f"im{i}.npy",
+                (rng.random((120, 90 + 10 * i, 3)) * 255).astype(np.uint8))
+    net = tfr.FasterRCNN(num_classes=6, image_size=128,
+                         generator=torch.Generator().manual_seed(0))
+    before = _counts()
+    run_detection(net, str(img_dir), str(tmp_path / "out"), batch_size=2,
+                  conf_thres=1e-3, iou_thres=0.5,
+                  class_map={c: c - 1 for c in range(1, 6)})
+    after = _counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (3, 3)
+    for i in range(5):
+        a = np.load(tmp_path / "out" / f"im{i}.npy")
+        assert a.shape[1] == 6 and a.shape[0] > 0
+        assert np.all((a[:, 1:5] >= 0) & (a[:, 1:5] <= 1))
+        assert np.all((a[:, 0] >= 0) & (a[:, 0] < 5))

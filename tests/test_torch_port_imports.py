@@ -28,8 +28,9 @@ def test_import_pulls_in_no_jax():
     """A fresh interpreter imports the package and every module of it; no
     jax* module and no module of the JAX package may be loaded."""
     mods = _port_modules()
-    for m in ("ops.nms_fused", "models.mobilenetv3", "models.ssdlite",
-              "models.ssd_loss", "models.resnet", "models.retinanet",
+    for m in ("ops.nms_fused", "ops.nms_seq", "ops.gather",
+              "models.mobilenetv3", "models.ssdlite", "models.ssd_loss",
+              "models.resnet", "models.retinanet", "models.faster_rcnn",
               "data.coco_labelmap"):
         assert "edgeml_tpu_torch." + m in mods, m
     code = (

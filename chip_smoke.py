@@ -34,6 +34,11 @@ nvidia-smi reports them, and the result:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
+``python3 chip_smoke.py --kernels-only`` stops after the kernel phases (the
+build and every kernel against its plain version, with their times) and
+prints ``{"ok": true, "kernels_only": true}`` instead of the result: the
+quick loop while a kernel is being worked on.
+
 Imports torch, numpy, the standard library and ``edgeml_tpu_torch`` only.
 Scratch files go to ``.smoke_tmp/`` beside this script and are removed.
 """
@@ -94,6 +99,52 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, reps=5):
+    """Device milliseconds of one fn() with the host out of the way: iters
+    calls are captured into one CUDA graph (fn must be warm: built, its
+    inputs resident) and the graph is replayed reps times between two
+    events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def host_us(fn, iters=200, reps=5):
+    """Host microseconds the caller spends in one fn(): the wall clock
+    around a loop with no synchronisation inside (checks, allocation and
+    the launch call; the device runs behind), the least of reps loops (the
+    host's cores are shared: a neighbour's burst lengthens a loop, nothing
+    shortens one)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    best = math.inf
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best / iters * 1e6
 
 
 def gflop_per_image(net, x):
@@ -445,7 +496,7 @@ def check_files(out_dir, shapes, nc, conf_thres):
     return n_rows
 
 
-def main():
+def main(kernels_only=False):
     import torch
 
     if not torch.cuda.is_available():
@@ -455,7 +506,6 @@ def main():
     from edgeml_tpu_torch.models.infer import exact_f32_cuda
     from edgeml_tpu_torch.ops import nms
     from edgeml_tpu_torch.ops.nms_fused import (
-        greedy_keep_mask_blocked_cuda, greedy_keep_mask_blocked_plain,
         greedy_keep_mask_fused, greedy_keep_mask_plain,
     )
 
@@ -499,45 +549,16 @@ def main():
                  plain_ms=f"{p_ms:.3f}", bound_ms=f"{bound:.4f}",
                  bound_by=by)
 
-    # ---- phase 2b: blocked kernel against its plain versions, B=64 --------
-    for k in BLOCKED_KS:
-        for seed, spread, ncls in [(0, 80.0, 1), (1, 300.0, 4),
-                                   (2, 2000.0, 80)]:
-            for thr in (0.6, 0.45):
-                off, sc = fuzz(seed + k, BATCH, k, spread, ncls, nms.MAX_WH)
-                boxes = torch.from_numpy(off).to(dev)
-                scores = torch.from_numpy(sc).to(dev)
-                before = greedy_keep_mask_blocked_cuda.launches
-                got = greedy_keep_mask_fused(boxes, scores, thr)
-                torch.cuda.synchronize()
-                if greedy_keep_mask_blocked_cuda.launches != before + 1:
-                    fail(f"K = {k} did not launch the blocked kernel")
-                want = greedy_keep_mask_blocked_plain(boxes, scores, thr)
-                if not torch.equal(got, want):
-                    fail(f"blocked kernel != plain (K {k}, seed {seed}, "
-                         f"thr {thr}): {int((got != want).sum())} entries "
-                         f"differ")
-                if k == 2048 and not torch.equal(
-                        got, greedy_keep_mask_plain(boxes, scores, thr)):
-                    fail(f"blocked kernel != global plain (seed {seed})")
-                k_ms = cuda_ms(
-                    lambda: greedy_keep_mask_fused(boxes, scores, thr), 20)
-                p_ms = cuda_ms(
-                    lambda: greedy_keep_mask_blocked_plain(boxes, scores,
-                                                           thr), 3, warmup=1)
-                bound, by = suppressor_bound_ms(boxes, scores)
-                line("blocked_vs_plain", k=k,
-                     regime=f"{seed}/{spread}/{ncls}", thr=thr, batch=BATCH,
-                     equal=True, kept=int(got.sum()),
-                     valid=int((scores > 0).sum()), kernel_ms=f"{k_ms:.4f}",
-                     plain_ms=f"{p_ms:.3f}", bound_ms=f"{bound:.4f}",
-                     bound_by=by)
-            del boxes, scores, got, want
+    blocked_phase(dev)
     torch.cuda.empty_cache()
 
     seq_phase(dev)
     gather_record = gather_phase(dev)
     torch.cuda.empty_cache()
+    if kernels_only:
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "kernels_only": True}), flush=True)
+        return
 
     tmp = os.path.join(ROOT, ".smoke_tmp")
     shutil.rmtree(tmp, ignore_errors=True)
@@ -554,6 +575,108 @@ def main():
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
+
+
+def blocked_case(dev, tag, off, sc, thr, timed=True, check_global=False):
+    """One case of phase 2b: the blocked kernel through the entry point
+    against the blocked plain version on the same inputs, bit for bit, and
+    (timed) its looped, device-only and host times."""
+    import torch
+
+    from edgeml_tpu_torch.ops.nms_fused import (
+        greedy_keep_mask_blocked_cuda, greedy_keep_mask_blocked_plain,
+        greedy_keep_mask_fused, greedy_keep_mask_plain,
+    )
+
+    boxes = torch.from_numpy(off).to(dev)
+    scores = torch.from_numpy(sc).to(dev)
+    b, k = scores.shape
+    before = greedy_keep_mask_blocked_cuda.launches
+    got = greedy_keep_mask_fused(boxes, scores, thr)
+    torch.cuda.synchronize()
+    if greedy_keep_mask_blocked_cuda.launches != before + 1:
+        fail(f"{tag}: K = {k} did not launch the blocked kernel")
+    want = greedy_keep_mask_blocked_plain(boxes, scores, thr)
+    if not torch.equal(got, want):
+        fail(f"blocked kernel != plain ({tag}, B {b}, K {k}, thr {thr}): "
+             f"{int((got != want).sum())} entries differ")
+    if check_global and not torch.equal(
+            got, greedy_keep_mask_plain(boxes, scores, thr)):
+        fail(f"blocked kernel != global plain ({tag})")
+    kw = {}
+    if timed:
+        valid = (scores > 0).contiguous()
+
+        def run():
+            return greedy_keep_mask_blocked_cuda(boxes, valid, thr)
+
+        k_ms = cuda_ms(lambda: greedy_keep_mask_fused(boxes, scores, thr), 20)
+        p_ms = cuda_ms(lambda: greedy_keep_mask_blocked_plain(boxes, scores,
+                                                              thr), 3,
+                       warmup=1)
+        bound, by = suppressor_bound_ms(boxes, scores)
+        kw = dict(kernel_ms=f"{k_ms:.4f}", device_ms=f"{device_ms(run):.4f}",
+                  host_us=f"{host_us(run, 50):.1f}", plain_ms=f"{p_ms:.3f}",
+                  bound_ms=f"{bound:.4f}", bound_by=by)
+    line("blocked_vs_plain", k=k, regime=tag, thr=thr, batch=b, equal=True,
+         kept=int(got.sum()), valid=int((scores > 0).sum()), **kw)
+
+
+def blocked_phase(dev):
+    """Phase 2b: the blocked kernel against its plain versions. Timed: B =
+    64 at three K, three regimes and two thresholds, and B = 16 (the
+    RetinaNet / Faster R-CNN batch) at K = 2048. Equality only: B = 1 and
+    B = 200 (more images than the card holds at once), an all-invalid
+    image, invalid holes inside the valid prefix, thr = 0.0 and a negative
+    threshold, IoUs exactly at the threshold, and ragged last bands and
+    words (K = 1025, 1537, 2047)."""
+    from edgeml_tpu_torch.ops import nms
+    from edgeml_tpu_torch.ops.nms_fused import blocked_max_active_clusters
+
+    line("blocked_occupancy", blocks_per_image=8,
+         max_active_clusters=blocked_max_active_clusters())
+    regimes = [(0, 80.0, 1), (1, 300.0, 4), (2, 2000.0, 80)]
+    for k in BLOCKED_KS:
+        for seed, spread, ncls in regimes:
+            for thr in (0.6, 0.45):
+                off, sc = fuzz(seed + k, BATCH, k, spread, ncls, nms.MAX_WH)
+                blocked_case(dev, f"{seed}/{spread}/{ncls}", off, sc, thr,
+                             check_global=k == 2048)
+    for seed, spread, ncls in regimes:
+        off, sc = fuzz(seed + 16, RETINA_BATCH, 2048, spread, ncls,
+                       nms.MAX_WH)
+        blocked_case(dev, f"{seed}/{spread}/{ncls}", off, sc, 0.6)
+    for b in (1, 200):
+        off, sc = fuzz(b, b, 2048, 300.0, 4, nms.MAX_WH)
+        blocked_case(dev, f"batch{b}", off, sc, 0.6, timed=False)
+    off, sc = fuzz(7, RETINA_BATCH, 2048, 300.0, 4, nms.MAX_WH)
+    sc[0] = 0.0  # an all-invalid image
+    sc[1, 100:300] = 0.0  # a hole across the first band's edge
+    sc[2, 5] = 0.0
+    sc[2, 1000:1100] = 0.0
+    sc[3, :600] = 0.0  # the first two bands invalid
+    sc[4, 1:] = 0.0  # one valid candidate
+    blocked_case(dev, "holes", off, sc, 0.6, timed=False, check_global=True)
+    for thr in (0.0, -0.5):
+        # thr = 0: any overlap suppresses; below 0 disjoint pairs do too
+        blocked_case(dev, "holes", off, sc, thr, timed=False,
+                     check_global=True)
+    # integer-cornered boxes of one class on a small grid: many pairs have
+    # exactly the threshold's IoU (0.6f = 6/10, 1/3), which must not suppress
+    rng = np.random.default_rng(5)
+    xy = rng.integers(0, 24, (RETINA_BATCH, 2048, 2))
+    grid = np.concatenate([xy, xy + rng.integers(1, 13, xy.shape)],
+                          axis=-1).astype(np.float32)
+    _, sc = fuzz(5, RETINA_BATCH, 2048, 300.0, 1, nms.MAX_WH)
+    for thr in (0.6, float(np.float32(1) / np.float32(3))):
+        blocked_case(dev, "ties", grid, sc, thr, timed=False,
+                     check_global=True)
+    for k in (1025, 1537, 2047):
+        for seed, spread, ncls in regimes[:2]:
+            off, sc = fuzz(seed + k, RETINA_BATCH, k, spread, ncls,
+                           nms.MAX_WH)
+            blocked_case(dev, f"{seed}/{spread}/{ncls}", off, sc, 0.6,
+                         timed=False, check_global=True)
 
 
 def _wrappers():
@@ -1074,8 +1197,11 @@ def seq_phase(dev):
 def gather_phase(dev):
     """Phase 2d: the row gather against its plain version (``torch.gather``,
     times the scale), bit for bit, at YOLOv5's tail (B = 64, N = 25,200,
-    C = 80, K = 1024, scaled, f32 and bf16) and Faster R-CNN's ``nms_rows``
-    gather (B = 16, N = 90,000, C = 4, K = 2048). Returns the kernel's
+    C = 80, K = 1024, scaled, f32 and bf16), Faster R-CNN's ``nms_rows``
+    gather (B = 16, N = 90,000, C = 4, K = 2048), the same from a source
+    view offset by one element (rows not 16-byte aligned) and its class-id
+    gather (C = 1). Each with the looped time, the device time alone and the
+    host time per call, beside ``torch.gather``'s. Returns the kernel's
     record at the Faster R-CNN shape (its launches filled in later)."""
     import torch
 
@@ -1085,12 +1211,16 @@ def gather_phase(dev):
 
     record = None
     rng = np.random.default_rng(11)
-    for tag, b, n, c, k, dtype, scaled in (
-            ("yolo_f32", 64, 25200, 80, 1024, torch.float32, True),
-            ("yolo_bf16", 64, 25200, 80, 1024, torch.bfloat16, True),
-            ("frcnn_rows", 16, 90000, 4, 2048, torch.float32, False)):
-        src = torch.from_numpy(rng.random((b, n, c), np.float32)).to(
-            dev, dtype)
+    for tag, b, n, c, k, dtype, scaled, offset in (
+            ("yolo_f32", 64, 25200, 80, 1024, torch.float32, True, 0),
+            ("yolo_bf16", 64, 25200, 80, 1024, torch.bfloat16, True, 0),
+            ("frcnn_rows", 16, 90000, 4, 2048, torch.float32, False, 0),
+            ("frcnn_rows_offset", 16, 90000, 4, 2048, torch.float32, False,
+             1),
+            ("frcnn_cls", 16, 90000, 1, 2048, torch.float32, False, 0)):
+        flat = torch.from_numpy(rng.random(b * n * c + offset,
+                                           np.float32)).to(dev, dtype)
+        src = flat[offset:].view(b, n, c)
         idx = torch.from_numpy(rng.integers(0, n, (b, k))).to(dev)
         scale = torch.from_numpy(rng.random((b, n), np.float32)).to(
             dev, dtype) if scaled else None
@@ -1103,15 +1233,27 @@ def gather_phase(dev):
         if not (got.dtype == want.dtype and torch.equal(got, want)):
             fail(f"gather {tag}: kernel != plain")
         err = float((got.float() - want.float()).abs().max())
-        k_ms = cuda_ms(lambda: gather_rows_cuda(src, idx, scale), 50)
-        p_ms = cuda_ms(lambda: gather_rows_plain(src, idx, scale), 50)
         full = idx[..., None].expand(b, k, c)
-        lib_ms = cuda_ms(lambda: torch.gather(src, 1, full), 50)
+
+        def run():
+            return gather_rows_cuda(src, idx, scale)
+
+        def lib():
+            return torch.gather(src, 1, full)
+
+        # 500 calls a loop: these take microseconds, and one host hiccup
+        # of a millisecond would double the mean of 50
+        k_ms = cuda_ms(run, 500)
+        p_ms = cuda_ms(lambda: gather_rows_plain(src, idx, scale), 500)
+        lib_ms = cuda_ms(lib, 500)
         bound, by = gather_bound_ms(src, idx, scale, got)
         line("gather_vs_plain", shape=tag, batch=b, n=n, c=c, k=k,
              dtype=str(dtype).split(".")[-1], scaled=scaled, equal=True,
-             kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
-             library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.5f}",
+             kernel_ms=f"{k_ms:.4f}", device_ms=f"{device_ms(run, 50):.5f}",
+             host_us=f"{host_us(run):.2f}", plain_ms=f"{p_ms:.4f}",
+             library_ms=f"{lib_ms:.4f}",
+             library_device_ms=f"{device_ms(lib, 50):.5f}",
+             library_host_us=f"{host_us(lib):.2f}", bound_ms=f"{bound:.5f}",
              bound_by=by)
         if tag == "frcnn_rows":
             record = {
@@ -1127,7 +1269,7 @@ def gather_phase(dev):
                 "bound_by": by,
                 "library_ms": lib_ms,
             }
-        del src, idx, scale, got, want, full
+        del flat, src, idx, scale, got, want, full
     return record
 
 
@@ -1355,4 +1497,6 @@ def frcnn_phases(dev, tmp, img_dir, shapes, gather_record):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] not in ([], ["--kernels-only"]):
+        fail(f"usage: {sys.argv[0]} [--kernels-only]")
+    main(kernels_only=sys.argv[1:] == ["--kernels-only"])

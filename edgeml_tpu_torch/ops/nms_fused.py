@@ -11,9 +11,11 @@ count K as the reference does. For a CUDA tensor it launches, or raises:
   * K <= 1024: the kernel of ``csrc/nms_fused.cu`` (one block per image, the
     whole suppression relation as bits in shared memory, a one-warp greedy
     walk), ``greedy_keep_mask_cuda``;
-  * 1024 < K <= 2048: the blocked kernel of ``csrc/nms_blocked.cu`` (the
-    relation built and walked in bands of 256 targets, since the K = 2048 bit
-    matrix does not fit in shared memory), ``greedy_keep_mask_blocked_cuda``;
+  * 1024 < K <= 2048: the blocked kernel of ``csrc/nms_blocked.cu`` (a
+    cluster of 8 blocks per image: each builds one band of 256 targets in
+    its own shared memory at the same time, and the bands are decided in
+    order, each block handing its kept words to the later ones),
+    ``greedy_keep_mask_blocked_cuda``;
   * larger K: ValueError.
 
 It takes a plain version only for a tensor on the CPU: the global fixpoint
@@ -68,6 +70,10 @@ def _load(name: str):
         err = getattr(lib, f"{name}_error_string")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
+        if name == "nms_blocked":
+            lib.nms_blocked_max_active_clusters.restype = ctypes.c_int
+            lib.nms_blocked_max_active_clusters.argtypes = [
+                ctypes.POINTER(ctypes.c_int)]
         _libs[name] = lib
     return lib
 
@@ -180,10 +186,14 @@ def _launch(name: str, counter, max_k: int, boxes: torch.Tensor,
         return out
     lib = _load(name)
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    with torch.cuda.device(boxes.device):
-        rc = getattr(lib, f"{name}_greedy_keep")(
-            boxes.data_ptr(), valid.data_ptr(), out.data_ptr(), b, k,
+    fn = getattr(lib, f"{name}_greedy_keep")
+    args = (boxes.data_ptr(), valid.data_ptr(), out.data_ptr(), b, k,
             float(iou_thres), stream)
+    if boxes.device.index == torch.cuda.current_device():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(boxes.device):
+            rc = fn(*args)
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
         raise RuntimeError(
@@ -215,6 +225,20 @@ def greedy_keep_mask_blocked_cuda(boxes: torch.Tensor, valid: torch.Tensor,
 
 
 greedy_keep_mask_blocked_cuda.launches = 0
+
+
+def blocked_max_active_clusters() -> int:
+    """How many images' clusters of the blocked kernel the current CUDA
+    device holds at once (``cudaOccupancyMaxActiveClusters`` at the kernel's
+    block size and shared memory); more images run in waves."""
+    lib = _load("nms_blocked")
+    n = ctypes.c_int(0)
+    rc = lib.nms_blocked_max_active_clusters(ctypes.byref(n))
+    if rc != 0:
+        msg = lib.nms_blocked_error_string(rc).decode()
+        raise RuntimeError(
+            f"nms_blocked occupancy query failed: CUDA error {rc} ({msg})")
+    return n.value
 
 
 def greedy_keep_mask_fused(boxes: torch.Tensor, scores: torch.Tensor,

@@ -19,7 +19,7 @@ import torch
 from edgeml_tpu_torch.models import faster_rcnn as tfr
 from edgeml_tpu_torch.ops import nms as tnms
 from edgeml_tpu_torch.ops.gather import (
-    gather_rows, gather_rows_cuda, gather_rows_plain,
+    gather_rows, gather_rows_cuda, gather_rows_plain, vector_path,
 )
 from edgeml_tpu_torch.ops.nms_fused import (
     greedy_keep_mask_blocked_cuda, greedy_keep_mask_blocked_plain,
@@ -71,14 +71,15 @@ def test_kernel_equals_plain(cuda, seed, spread, ncls, thr, k):
         boxes.cpu(), scores.cpu(), thr))
 
 
-@pytest.mark.parametrize("k", [2048, 1536, 1280, 1025])
+@pytest.mark.parametrize("b", [8, 24])
+@pytest.mark.parametrize("k", [2048, 2047, 1537, 1536, 1280, 1025])
 @pytest.mark.parametrize("thr", [0.6, 0.45])
 @pytest.mark.parametrize("seed,spread,ncls",
                          [(0, 80.0, 1), (1, 300.0, 4), (2, 2000.0, 80)])
-def test_blocked_kernel_equals_plain(cuda, seed, spread, ncls, thr, k):
+def test_blocked_kernel_equals_plain(cuda, seed, spread, ncls, thr, k, b):
     """K in (1024, 2048] goes to the blocked kernel, equal to the blocked
     and the global plain versions."""
-    boxes, scores = fuzz(seed, 8, k, spread, ncls)
+    boxes, scores = fuzz(seed, b, k, spread, ncls)
     boxes, scores = boxes.to(cuda), scores.to(cuda)
     before = (greedy_keep_mask_cuda.launches,
               greedy_keep_mask_blocked_cuda.launches)
@@ -100,6 +101,76 @@ def test_blocked_kernel_small_k(cuda, k):
                                         (scores > 0).contiguous(), 0.5)
     torch.cuda.synchronize()
     assert torch.equal(got, greedy_keep_mask_plain(boxes, scores, 0.5))
+
+
+@pytest.mark.parametrize("b", [1, 16, 64, 200])
+def test_blocked_kernel_batch_sizes(cuda, b):
+    """One image, the RetinaNet / Faster R-CNN and SSDLite batches, and more
+    images than the card holds clusters at once."""
+    boxes, scores = fuzz(b, b, 2048, 300.0, 4)
+    boxes, scores = boxes.to(cuda), scores.to(cuda)
+    got = greedy_keep_mask_fused(boxes, scores, 0.6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, greedy_keep_mask_blocked_plain(boxes, scores, 0.6))
+    assert 0 < int(got.sum()) < int((scores > 0).sum())
+
+
+@pytest.mark.parametrize("b", [6, 40])
+@pytest.mark.parametrize("k", [2048, 2047, 1025, 300])
+@pytest.mark.parametrize("thr", [0.6, 0.0, -0.5])
+def test_blocked_kernel_invalid_candidates(cuda, k, thr, b):
+    """An all-invalid image, invalid holes inside the valid prefix (one
+    across a band's edge), whole leading bands invalid and a single valid
+    candidate; at thr = 0 any overlap suppresses, below 0 disjoint pairs do
+    too (the kernel's disjoint-pair shortcut must not apply there)."""
+    boxes, scores = fuzz(7 + k, b, k, 300.0, 4)
+    scores[0] = 0.0
+    scores[1, 100:300] = 0.0
+    scores[2, 5] = 0.0
+    scores[2, k // 2:k // 2 + 100] = 0.0
+    scores[3, :min(600, k - 20)] = 0.0
+    scores[4, 1:] = 0.0
+    boxes, scores = boxes.to(cuda), scores.to(cuda)
+    got = greedy_keep_mask_blocked_cuda(boxes, (scores > 0).contiguous(), thr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, greedy_keep_mask_blocked_plain(boxes, scores, thr))
+    assert torch.equal(got, greedy_keep_mask_plain(boxes, scores, thr))
+    assert not got[0].any() and got[4].tolist() == [True] + [False] * (k - 1)
+
+
+def tie_boxes(seed, b, k):
+    """Integer-cornered boxes of one class on a small grid: intersections and
+    unions are small integers, so many pairs share an IoU exactly and a
+    threshold set to one such f32 quotient has compares on it and on either
+    side of it."""
+    rng = np.random.default_rng(seed)
+    xy = rng.integers(0, 24, (b, k, 2))
+    wh = rng.integers(1, 13, (b, k, 2))
+    boxes = np.concatenate([xy, xy + wh], axis=-1).astype(np.float32)
+    scores = np.sort(rng.random((b, k)).astype(np.float32),
+                     axis=-1)[:, ::-1].copy()
+    return torch.from_numpy(boxes), torch.from_numpy(scores)
+
+
+@pytest.mark.parametrize("b", [4, 20])
+@pytest.mark.parametrize("k", [1100, 2048])
+@pytest.mark.parametrize("num,den", [(6, 10), (1, 3), (1, 2), (2, 3), (1, 4),
+                                     (5, 7), (9, 11)])
+def test_blocked_kernel_exact_ties(cuda, num, den, k, b):
+    """IoU exactly at the threshold does not suppress (strict compare on the
+    rounded quotient); the kernel decides most compares without the division
+    and must take it here."""
+    thr = float(np.float32(num) / np.float32(den))
+    boxes, scores = tie_boxes(num * 100 + den, b, k)
+    b0, b1 = boxes[0, 0], boxes[0, 1]  # a pair at the threshold, by hand
+    b0[:] = torch.tensor([0.0, 0.0, float(den), 7.0])
+    b1[:] = torch.tensor([0.0, 0.0, float(num), 7.0])
+    boxes, scores = boxes.to(cuda), scores.to(cuda)
+    got = greedy_keep_mask_blocked_cuda(boxes, (scores > 0).contiguous(), thr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, greedy_keep_mask_blocked_plain(boxes, scores, thr))
+    assert torch.equal(got, greedy_keep_mask_plain(boxes, scores, thr))
+    assert 0 < int(got.sum()) < got.numel()
 
 
 def test_kernel_rejects_large_k(cuda):
@@ -264,7 +335,7 @@ def test_seq_kernel_rejects_large_k(cuda):
     (torch.float32, None), (torch.bfloat16, None),
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
-@pytest.mark.parametrize("c", [1, 4, 80, 91])
+@pytest.mark.parametrize("c", [1, 3, 4, 8, 80, 91])
 @pytest.mark.parametrize("idx_dt", [torch.int32, torch.int64])
 def test_gather_kernel_equals_plain(cuda, src_dt, scale_dt, c, idx_dt):
     rng = np.random.default_rng(c)
@@ -284,16 +355,47 @@ def test_gather_kernel_equals_plain(cuda, src_dt, scale_dt, c, idx_dt):
         src.cpu(), idx.cpu(), None if scale is None else scale.cpu()))
 
 
+def _vector(src, scale=None):
+    """The path the wrapper takes for this source (the output of
+    ``torch.empty`` is aligned)."""
+    return vector_path(src.dtype, None if scale is None else scale.dtype,
+                       src.shape[2], src.stride(0), src.stride(1),
+                       src.data_ptr(), 0)
+
+
 def test_gather_kernel_strided_sources(cuda):
-    """An expanded source (image stride 0) and a channel slice (row stride
-    > C) are read in place."""
+    """An expanded source (image stride 0), a channel slice (row stride > C,
+    rows off the 16-byte grid), a misaligned base, a row-strided aligned
+    view, a non-contiguous index and K = 1 are read in place, on the path
+    their alignment allows."""
     rng = np.random.default_rng(9)
     anc = torch.from_numpy(rng.random((900, 4)).astype(np.float32)).to(cuda)
     wide = torch.from_numpy(rng.random((3, 900, 91)).astype(
         np.float32)).to(cuda)
+    wide96 = torch.from_numpy(rng.random((3, 900, 96)).astype(
+        np.float32)).to(cuda)
+    flat = torch.from_numpy(rng.random(3 * 900 * 4 + 1).astype(
+        np.float32)).to(cuda)
+    half = torch.from_numpy(rng.random((3, 900, 88)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
     idx = torch.from_numpy(rng.integers(0, 900, (3, 256))).to(cuda)
-    for src in (anc.expand(3, -1, -1), wide[..., 1:]):
-        assert torch.equal(gather_rows(src, idx), gather_rows_plain(src, idx))
+    idx_t = torch.from_numpy(rng.integers(0, 900, (256, 3))).to(cuda).t()
+    assert not idx_t.is_contiguous()
+    cases = [(anc.expand(3, -1, -1), True), (wide[..., 1:], False),
+             (flat[1:].view(3, 900, 4), False), (flat[:-1].view(3, 900, 4),
+                                                 True),
+             (wide96[..., 4:12], True), (wide96[..., 3:11], False),
+             (anc[:1].expand(3, 900, 4), True), (half[..., 8:88], True),
+             (half[..., 4:84], False)]
+    for src, vec in cases:
+        assert _vector(src) == vec
+        for ix in (idx, idx_t, idx[:, :1]):
+            assert torch.equal(gather_rows(src, ix),
+                               gather_rows_plain(src, ix))
+    scale = torch.from_numpy(rng.random((3, 900)).astype(np.float32)).to(cuda)
+    for src, _ in cases[:6]:
+        assert torch.equal(gather_rows(src, idx_t, scale.t().contiguous().t()),
+                           gather_rows_plain(src, idx_t, scale))
 
 
 class _Plain:

@@ -257,6 +257,75 @@ def test_keep_mask_blocked_plain_matches_jax(seed, spread, ncls, k):
         assert want.sum() < (sc > 0).sum()
 
 
+@pytest.mark.parametrize("num,den", [(6, 10), (1, 3), (2, 3)])
+def test_keep_mask_blocked_plain_exact_ties_match_jax(num, den):
+    """Integer-cornered boxes of one class on a small grid (many pairs share
+    an IoU exactly) with the threshold set to one such f32 quotient: IoU at
+    the threshold does not suppress. Blocked plain == global plain == JAX
+    greedy_keep_mask(block=256), bit for bit, at K = 1100."""
+    thr = float(np.float32(num) / np.float32(den))
+    rng = np.random.default_rng(num * 100 + den)
+    b, k = 2, 1100
+    xy = rng.integers(0, 24, (b, k, 2))
+    wh = rng.integers(1, 13, (b, k, 2))
+    boxes = np.concatenate([xy, xy + wh], axis=-1).astype(np.float32)
+    boxes[0, 0] = [0, 0, den, 7]  # a pair at the threshold, by hand
+    boxes[0, 1] = [0, 0, num, 7]
+    sc = np.sort(rng.random((b, k)).astype(np.float32), axis=-1)[:, ::-1]
+    sc = np.ascontiguousarray(sc)
+    jb, js = jnp.asarray(boxes), jnp.asarray(sc)
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda bb, ss: greedy_keep_mask(bb, ss, thr, block=256)))(jb, js))
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(sc)
+    np.testing.assert_array_equal(
+        greedy_keep_mask_blocked_plain(tb, ts, thr).numpy(), want)
+    np.testing.assert_array_equal(greedy_keep_mask_plain(tb, ts, thr).numpy(),
+                                  want)
+    iou01 = np.float32(num * 7) / np.float32(den * 7)
+    assert iou01 == np.float32(thr)
+    assert 0 < want.sum() < want.size
+
+
+@pytest.mark.parametrize("case", ["all_invalid", "hole", "leading_bands",
+                                  "thr0", "k1025", "k2047"])
+def test_keep_mask_blocked_plain_edge_cases_match_jax(case):
+    """The answers the blocked kernel is held to on the card where its
+    shortcuts could go wrong: an all-invalid image, an invalid hole inside
+    the valid prefix (across a band's edge), whole leading bands invalid,
+    thr = 0.0 (any overlap suppresses) and ragged last bands and words
+    (K = 1025, 2047). Blocked plain == global plain == JAX
+    greedy_keep_mask(block=256), bit for bit."""
+    k = {"k1025": 1025, "k2047": 2047}.get(case, 2048)
+    thr = 0.0 if case == "thr0" else 0.6
+    off, sc = fuzz_boxes(len(case) + k, 2, k, 300.0, 4)
+    if case == "all_invalid":
+        sc[0] = 0.0
+    elif case == "hole":
+        sc[0, 100:300] = 0.0
+        sc[1, 5] = 0.0
+        sc[1, 1000:1100] = 0.0
+    elif case == "leading_bands":
+        sc[0, :600] = 0.0
+        sc[1, 1:] = 0.0
+    jb, js = jnp.asarray(off), jnp.asarray(sc)
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda bb, ss: greedy_keep_mask(bb, ss, thr, block=256)))(jb, js))
+    tb, ts = torch.from_numpy(off), torch.from_numpy(sc)
+    np.testing.assert_array_equal(
+        greedy_keep_mask_blocked_plain(tb, ts, thr).numpy(), want)
+    np.testing.assert_array_equal(greedy_keep_mask_plain(tb, ts, thr).numpy(),
+                                  want)
+    np.testing.assert_array_equal(greedy_keep_mask_fused(tb, ts, thr).numpy(),
+                                  want)
+    assert not want[sc <= 0].any()
+    if case == "all_invalid":
+        assert not want[0].any() and want[1].any()
+    elif case == "leading_bands":
+        assert want[1].tolist() == [True] + [False] * (k - 1)
+    else:
+        assert 0 < want.sum() < (sc > 0).sum()
+
+
 def test_keep_mask_blocked_matches_interpret_mode_kernel():
     """The blocked plain version == the reference's blocked Pallas kernel
     (_kernel_blocked) run in interpret mode at K = 2048, on clustered boxes

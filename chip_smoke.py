@@ -9,23 +9,32 @@ from a seed) from an image directory to per-image detection files and checks
 what comes out:
 
   * YOLOv5n serving (80 classes, 640x640 letterbox) in f32 and bf16, through
-    the monolithic suppressor kernel (K = 1024); then the strong detector
-    (YOLOv5m) through the same code on one batch;
+    the monolithic suppressor kernel (K = 1024, a cluster of 4 blocks per
+    image); then the strong detector (YOLOv5m) through the same code on one
+    batch;
   * SSDLite320-MobileNetV3-Large serving (91 classes, COCO -> 80 class map)
-    in f32 and bf16, through the blocked suppressor kernel (K = 2048);
+    in f32 and bf16, through the blocked suppressor kernel (K = 2048, the
+    same banded kernel as a cluster of 8);
   * RetinaNet-ResNet50-FPN-v2 serving (91 classes, 640) in f32, through the
     blocked kernel, and one device-resident batch timed in f32 and bf16;
   * Faster R-CNN-ResNet50-FPN-v2 serving (91 classes, 640, 1000 proposals,
     100 detections) in f32 (traced), through the sequential suppressor
-    kernel (RPN proposals, all images and levels in one launch), the row
+    kernel (RPN proposals, all images and levels in one launch; the loop's
+    answer in its sorted form, a cluster of 4 blocks per segment), the row
     gathers and the blocked kernel (final NMS, K = 2048); one
     device-resident batch timed stage by stage in f32 and bf16; its
     proposal and final tails rerun with the plain versions.
 
-The sequential suppressor is also held against its plain version and the
-fixpoint ``suppress_mask`` at the RPN's shape, and the row gather against
-``torch.gather`` (times the scale) at YOLOv5's and Faster R-CNN's shapes.
-The YOLOv5, SSDLite and RetinaNet tails run the row-gather kernel too.
+Before the serving paths, each kernel is held against its plain version
+bit for bit and timed (``kernel_ms`` looped, ``device_ms`` from a CUDA
+graph, ``host_us`` the wrapper's host cost): the monolithic and the blocked
+suppressor on fuzz regimes and edge cases (one image to 200, all-invalid
+images, holes, thr = 0, < 0 and 1, exact IoU ties, ragged K), the
+sequential suppressor at the RPN's shape and on its own edge cases (sticky
+picks, thr >= 1, thr < 0, a NaN thr, caps of 0, 1 and 7, dead segments,
+ragged K), and the row gather against ``torch.gather`` (times the scale) at
+YOLOv5's and Faster R-CNN's shapes. The YOLOv5, SSDLite and RetinaNet tails
+run the row-gather kernel too.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase prints one line; any failure exits non-zero. The last
@@ -35,9 +44,13 @@ nvidia-smi reports them, and the result:
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
 ``python3 chip_smoke.py --kernels-only`` stops after the kernel phases (the
-build and every kernel against its plain version, with their times) and
-prints ``{"ok": true, "kernels_only": true}`` instead of the result: the
-quick loop while a kernel is being worked on.
+build and every kernel against its plain version, with their times), then
+times the monolithic and the sequential suppressor on the inputs their main
+paths give them (the YOLOv5n tail and the Faster R-CNN RPN segments, from
+the serving phases' seeds), and prints ``{"ok": true, "kernels_only":
+true}`` instead of the result: the quick loop while a kernel is being
+worked on, and the run that compares a parent commit's kernels (its tree
+with this script) with the change's in one call.
 
 Imports torch, numpy, the standard library and ``edgeml_tpu_torch`` only.
 Scratch files go to ``.smoke_tmp/`` beside this script and are removed.
@@ -179,8 +192,8 @@ def fuzz(seed, b, k, spread, ncls, max_wh):
     rng = np.random.default_rng(seed)
     xy = rng.uniform(20, 20 + spread, (b, k, 2)).astype(np.float32)
     wh = rng.uniform(30, 150, (b, k, 2)).astype(np.float32)
-    scores = np.ascontiguousarray(
-        np.sort(rng.random((b, k)).astype(np.float32), axis=-1)[:, ::-1])
+    scores = np.sort(rng.random((b, k)).astype(np.float32),
+                     axis=-1)[:, ::-1].copy()
     scores[scores < 0.05] = 0.0
     cls = rng.integers(0, ncls, (b, k)).astype(np.float32)
     boxes = np.concatenate([xy - wh / 2, xy + wh / 2], axis=-1)
@@ -456,11 +469,11 @@ class plain_kernels:
         return False
 
 
-def make_images(img_dir, seed):
+def make_images(img_dir, seed, n=N_IMAGES):
     rng = np.random.default_rng(seed)
     os.makedirs(img_dir)
     shapes = []
-    for i in range(N_IMAGES):
+    for i in range(n):
         h, w = SHAPES[i % len(SHAPES)]
         # smooth-ish content: a coarse random field upsampled, plus noise
         coarse = rng.random((h // 32 + 1, w // 32 + 1, 3))
@@ -506,7 +519,7 @@ def main(kernels_only=False):
     from edgeml_tpu_torch.models.infer import exact_f32_cuda
     from edgeml_tpu_torch.ops import nms
     from edgeml_tpu_torch.ops.nms_fused import (
-        greedy_keep_mask_fused, greedy_keep_mask_plain,
+        greedy_keep_mask_cuda, greedy_keep_mask_fused, greedy_keep_mask_plain,
     )
 
     dev = torch.device("cuda")
@@ -527,6 +540,7 @@ def main(kernels_only=False):
          nvcc_build_s=f"{build_s:.2f}")
 
     # ---- phase 2: monolithic kernel against its plain version, K=1024 -----
+    occupancy("nms_fused", 4)
     for seed, spread, ncls in [(0, 80.0, 1), (1, 300.0, 4), (2, 2000.0, 80)]:
         for thr in (0.6, 0.45):
             off, sc = fuzz(seed, 128, 1024, spread, ncls, nms.MAX_WH)
@@ -538,16 +552,23 @@ def main(kernels_only=False):
             if not torch.equal(got, want):
                 fail(f"kernel != plain (seed {seed}, thr {thr}): "
                      f"{int((got != want).sum())} entries differ")
+            valid = (scores > 0).contiguous()
+
+            def run():
+                return greedy_keep_mask_cuda(boxes, valid, thr)
+
             k_ms = cuda_ms(lambda: greedy_keep_mask_fused(boxes, scores, thr),
                            20)
             p_ms = cuda_ms(lambda: greedy_keep_mask_plain(boxes, scores, thr),
                            3, warmup=1)
             bound, by = suppressor_bound_ms(boxes, scores)
             line("kernel_vs_plain", regime=f"{seed}/{spread}/{ncls}",
-                 thr=thr, equal=True, kept=int(got.sum()),
+                 thr=thr, batch=128, equal=True, kept=int(got.sum()),
                  valid=int((scores > 0).sum()), kernel_ms=f"{k_ms:.4f}",
-                 plain_ms=f"{p_ms:.3f}", bound_ms=f"{bound:.4f}",
-                 bound_by=by)
+                 device_ms=f"{device_ms(run):.4f}",
+                 host_us=f"{host_us(run, 50):.1f}", plain_ms=f"{p_ms:.3f}",
+                 bound_ms=f"{bound:.4f}", bound_by=by)
+    fused_edge_phase(dev)
 
     blocked_phase(dev)
     torch.cuda.empty_cache()
@@ -556,6 +577,7 @@ def main(kernels_only=False):
     gather_record = gather_phase(dev)
     torch.cuda.empty_cache()
     if kernels_only:
+        mainpath_kernel_phase(dev)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "kernels_only": True}), flush=True)
         return
@@ -575,6 +597,69 @@ def main(kernels_only=False):
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
+
+
+def occupancy(name, blocks):
+    """Print how many clusters of a suppressor kernel the card holds at
+    once."""
+    from edgeml_tpu_torch.ops import nms_fused
+
+    n = nms_fused.max_active_clusters(name) \
+        if hasattr(nms_fused, "max_active_clusters") else "not queried"
+    line("occupancy", kernel=name, blocks_per_cluster=blocks,
+         max_active_clusters=n)
+
+
+def fused_edge_phase(dev):
+    """Phase 2, equality only: the monolithic kernel against the global and
+    the blocked plain versions on one image and on 200 (more than the card
+    holds clusters at once), an all-invalid image, invalid holes and whole
+    invalid leading bands, thr = 0.0, -0.5 and 1.0, IoUs exactly at the
+    threshold, and ragged K (1, 33, 257)."""
+    import torch
+
+    from edgeml_tpu_torch.ops import nms
+    from edgeml_tpu_torch.ops.nms_fused import (
+        greedy_keep_mask_blocked_plain, greedy_keep_mask_cuda,
+        greedy_keep_mask_fused, greedy_keep_mask_plain,
+    )
+
+    cases = []
+    for b in (1, 200):
+        cases.append((f"batch{b}", *fuzz(b, b, 1024, 300.0, 4, nms.MAX_WH),
+                      0.6))
+    off, sc = fuzz(7, 16, 1024, 300.0, 4, nms.MAX_WH)
+    sc[0] = 0.0  # an all-invalid image
+    sc[1, 200:300] = 0.0  # a hole across the first band's edge
+    sc[2, 5] = 0.0
+    sc[3, :600] = 0.0  # the first two bands invalid
+    sc[4, 1:] = 0.0  # one valid candidate
+    for thr in (0.6, 0.0, -0.5, 1.0):
+        cases.append(("holes", off, sc, thr))
+    rng = np.random.default_rng(5)
+    xy = rng.integers(0, 24, (16, 1024, 2))
+    grid = np.concatenate([xy, xy + rng.integers(1, 13, xy.shape)],
+                          axis=-1).astype(np.float32)
+    for thr in (0.6, float(np.float32(1) / np.float32(3))):
+        cases.append(("ties", grid, fuzz(5, 16, 1024, 300.0, 1,
+                                         nms.MAX_WH)[1], thr))
+    for k in (1, 33, 257):
+        cases.append((f"k{k}", *fuzz(k, 16, k, 300.0, 4, nms.MAX_WH), 0.6))
+    for tag, off, sc, thr in cases:
+        boxes = torch.from_numpy(off).to(dev)
+        scores = torch.from_numpy(sc).to(dev)
+        before = greedy_keep_mask_cuda.launches
+        got = greedy_keep_mask_fused(boxes, scores, thr)
+        torch.cuda.synchronize()
+        if greedy_keep_mask_cuda.launches != before + 1:
+            fail(f"fused edge {tag}: the monolithic kernel did not launch")
+        if not (torch.equal(got, greedy_keep_mask_plain(boxes, scores, thr))
+                and torch.equal(got, greedy_keep_mask_blocked_plain(
+                    boxes, scores, thr))):
+            fail(f"monolithic kernel != plain ({tag}, thr {thr})")
+        line("kernel_vs_plain", regime=tag, thr=thr, batch=scores.shape[0],
+             k=scores.shape[1], equal=True, kept=int(got.sum()),
+             valid=int((scores > 0).sum()))
 
 
 def blocked_case(dev, tag, off, sc, thr, timed=True, check_global=False):
@@ -631,10 +716,8 @@ def blocked_phase(dev):
     threshold, IoUs exactly at the threshold, and ragged last bands and
     words (K = 1025, 1537, 2047)."""
     from edgeml_tpu_torch.ops import nms
-    from edgeml_tpu_torch.ops.nms_fused import blocked_max_active_clusters
 
-    line("blocked_occupancy", blocks_per_image=8,
-         max_active_clusters=blocked_max_active_clusters())
+    occupancy("nms_blocked", 8)
     regimes = [(0, 80.0, 1), (1, 300.0, 4), (2, 2000.0, 80)]
     for k in BLOCKED_KS:
         for seed, spread, ncls in regimes:
@@ -850,13 +933,18 @@ def serving_phases(dev, tmp, img_dir, shapes):
         fail(f"degenerate workload: {n_valid} candidates, {n_kept} kept")
     err = int((kept_k.int() - kept_p.int()).abs().max())
     valid = (top > 0).contiguous()
-    k_ms = cuda_ms(lambda: greedy_keep_mask_cuda(off, valid, iou), 50)
+
+    def run():
+        return greedy_keep_mask_cuda(off, valid, iou)
+
+    k_ms = cuda_ms(run, 50)
     p_ms = cuda_ms(lambda: greedy_keep_mask_plain(off, top, iou), 5,
                    warmup=1)
     bound, by = suppressor_bound_ms(off, top)
     line("tail_kernel_vs_plain", batch=BATCH, k=1024, dets_equal=True,
          candidates=n_valid, kept=n_kept, rows=int(v_k.sum()),
-         kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.3f}",
+         kernel_ms=f"{k_ms:.4f}", device_ms=f"{device_ms(run):.4f}",
+         host_us=f"{host_us(run, 50):.1f}", plain_ms=f"{p_ms:.3f}",
          bound_ms=f"{bound:.4f}", bound_by=by)
     del net, pred, obj, xywh, cls
 
@@ -1146,6 +1234,110 @@ def retina_phases(dev, tmp, img_dir, shapes):
                        iou)
 
 
+def yolo_tail_inputs(net, x, conf):
+    """The monolithic suppressor's inputs on the YOLOv5 main path for the
+    letterboxed batch x: class-offset boxes (B, 1024, 4) and scores."""
+    from edgeml_tpu_torch.ops import nms
+
+    obj, xywh, cls = net.predict(x)
+    cand, top, ci = nms.candidates(obj, xywh, cls, conf, 1024)
+    return (cand + ci[..., None] * nms.MAX_WH).contiguous(), top
+
+
+def rpn_segments(net, x):
+    """The sequential suppressor's arguments (boxes, scores, thr, max_keep)
+    on the Faster R-CNN main path for the batch x, recorded at the call."""
+    import torch
+
+    from edgeml_tpu_torch.models import faster_rcnn as tfr
+
+    seen = {}
+    real = tfr.suppress_mask_seq
+
+    def recording(*args):
+        seen["args"] = args
+        return real(*args)
+
+    tfr.suppress_mask_seq = recording
+    try:
+        with torch.no_grad():
+            net.proposals(*net.run_rpn(net.features(x)))
+    finally:
+        tfr.suppress_mask_seq = real
+    return seen["args"]
+
+
+def mainpath_kernel_phase(dev):
+    """Phase 2e (``--kernels-only``): the monolithic and the sequential
+    suppressor on the inputs their main paths give them, from the same
+    seeds as the serving phases (YOLOv5n tail, B = 64, K = 1024; Faster
+    R-CNN RPN segments of one batch of 16), each against its plain version,
+    with its looped, device-only and host times."""
+    import torch
+
+    from edgeml_tpu_torch.data.loader import decode_image
+    from edgeml_tpu_torch.models.common import letterbox_batch
+    from edgeml_tpu_torch.models.infer import square_batch
+    from edgeml_tpu_torch.ops.nms_fused import (
+        greedy_keep_mask_cuda, greedy_keep_mask_plain,
+    )
+    from edgeml_tpu_torch.ops.nms_seq import (
+        suppress_mask_seq_cuda, suppress_mask_seq_plain,
+    )
+
+    tmp = os.path.join(ROOT, ".smoke_tmp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        img_dir = os.path.join(tmp, "images")
+        make_images(img_dir, seed=0, n=BATCH)
+        names = sorted(os.listdir(img_dir))
+        imgs = [decode_image(os.path.join(img_dir, n)) for n in names]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    x = torch.from_numpy(letterbox_batch(imgs, 640)[0]).to(dev)
+    net = seeded_yolov5("n", 1, x[:16], dev)
+    with torch.no_grad():
+        off, top = yolo_tail_inputs(net, x, 0.001)
+    del net, x
+    valid = (top > 0).contiguous()
+
+    def fused():
+        return greedy_keep_mask_cuda(off, valid, 0.6)
+
+    got = fused()
+    if not torch.equal(got, greedy_keep_mask_plain(off, top, 0.6)):
+        fail("YOLOv5n tail: monolithic kernel != plain")
+    bound, by = suppressor_bound_ms(off, top)
+    line("mainpath_kernel", kernel="nms_fused", shape="yolov5n_tail",
+         batch=BATCH, k=1024, equal=True, candidates=int(valid.sum()),
+         kept=int(got.sum()), kernel_ms=f"{cuda_ms(fused, 50):.4f}",
+         device_ms=f"{device_ms(fused):.4f}",
+         host_us=f"{host_us(fused, 50):.1f}", bound_ms=f"{bound:.4f}",
+         bound_by=by)
+    del off, top, valid, got
+
+    x = torch.from_numpy(square_batch(imgs[:FRCNN_BATCH], 640)).to(dev)
+    net = seeded_faster_rcnn(5, x, dev)
+    boxes, scores, thr, max_keep = rpn_segments(net, x)
+    del net, x
+    torch.cuda.empty_cache()
+
+    def seq():
+        return suppress_mask_seq_cuda(boxes, scores, thr, max_keep)
+
+    kept, picks = seq()
+    p_kept, p_picks = suppress_mask_seq_plain(boxes, scores, thr, max_keep)
+    if not (torch.equal(kept, p_kept) and torch.equal(picks, p_picks)):
+        fail("Faster R-CNN RPN segments: sequential kernel != plain")
+    bound, by, live, n_picks, most = seq_bound_ms(boxes, scores, picks, thr)
+    line("mainpath_kernel", kernel="nms_seq", shape="frcnn_rpn",
+         segments=scores.shape[0], k=scores.shape[1], thr=thr, equal=True,
+         candidates=int((scores > 0).sum()), picks=n_picks, most_picks=most,
+         kernel_ms=f"{cuda_ms(seq, 20):.4f}", device_ms=f"{device_ms(seq):.4f}",
+         host_us=f"{host_us(seq, 50):.1f}", bound_ms=f"{bound:.4f}",
+         bound_by=by)
+
+
 def seq_phase(dev):
     """Phase 2c: the sequential suppressor against its plain version and
     the fixpoint ``suppress_mask`` at the RPN's shape (80 segments = 16
@@ -1157,6 +1349,7 @@ def seq_phase(dev):
         suppress_mask_seq, suppress_mask_seq_cuda, suppress_mask_seq_plain,
     )
 
+    occupancy("nms_seq", 4)
     for ri, regime in enumerate(("dense", "sparse", "ties")):
         bx, sc = seq_candidates(ri, SEQ_SEGMENTS, SEQ_K, regime)
         boxes = torch.from_numpy(bx).to(dev)
@@ -1178,8 +1371,11 @@ def seq_phase(dev):
                                                        SEQ_K)):
                 fail(f"sequential kernel != fixpoint suppress_mask "
                      f"({regime}, thr {thr})")
-            k_ms = cuda_ms(lambda: suppress_mask_seq_cuda(boxes, scores, thr,
-                                                          SEQ_K), 20)
+
+            def run():
+                return suppress_mask_seq_cuda(boxes, scores, thr, SEQ_K)
+
+            k_ms = cuda_ms(run, 20)
             p_ms = cuda_ms(lambda: suppress_mask_seq_plain(boxes, scores,
                                                            thr, SEQ_K), 2,
                            warmup=1)
@@ -1189,9 +1385,74 @@ def seq_phase(dev):
                  segments=SEQ_SEGMENTS, k=SEQ_K, equal=True,
                  valid=int((scores > 0).sum()), kept=int(kept.sum()),
                  picks=n_picks, most_picks=most, live_pairs=live,
-                 kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.3f}",
+                 kernel_ms=f"{k_ms:.4f}", device_ms=f"{device_ms(run):.4f}",
+                 host_us=f"{host_us(run, 50):.1f}", plain_ms=f"{p_ms:.3f}",
                  bound_ms=f"{bound:.4f}", bound_by=by)
         del boxes, scores, kept, picks, p_kept, p_picks
+    seq_edge_phase(dev)
+
+
+def seq_edge_phase(dev):
+    """Phase 2c, equality only: the sequential kernel's kept and picks
+    against the plain loop's on sticky picks (boxes of zero width, zero
+    height and x2 < x1, never removed by themselves: picked at every
+    remaining step), thr = 1.0 and 1.5 (every box sticky), thr = 0.0, -0.5
+    and NaN (every pair suppresses), caps of 0, 1 and 7, all-dead segments,
+    candidates already in key order (the RPN's case), one segment and 200
+    (more than the card holds clusters at once), and ragged K (1, 33,
+    257)."""
+    import torch
+
+    from edgeml_tpu_torch.ops.nms_seq import (
+        suppress_mask_seq, suppress_mask_seq_cuda, suppress_mask_seq_plain,
+    )
+
+    bx, sc = seq_candidates(3, SEQ_SEGMENTS, SEQ_K, "dense")
+    rng = np.random.default_rng(4)
+    sticky, sticky_sc = bx.copy(), sc.copy()
+    for seg in range(SEQ_SEGMENTS):
+        hit = rng.choice(SEQ_K, 12, replace=False)
+        sticky[seg, hit[:4], 2] = sticky[seg, hit[:4], 0]
+        sticky[seg, hit[4:8], 3] = sticky[seg, hit[4:8], 1]
+        sticky[seg, hit[8:], 0] = bx[seg, hit[8:], 2]
+        sticky[seg, hit[8:], 2] = bx[seg, hit[8:], 0]
+        sticky_sc[seg, hit[::3]] = np.float32(0.999)  # picked early
+    dead = sc.copy()
+    dead[::3] = 0.0
+    # a top-k's order with saturated ties (in index order) and dead
+    # candidates in between, as the RPN gives them
+    tb, ts = seq_candidates(5, SEQ_SEGMENTS, SEQ_K, "ties")
+    presorted = -np.sort(-ts, axis=1)
+    presorted[ts <= 0] = 0.0
+    cases = [("sticky", sticky, sticky_sc, 0.7, SEQ_K),
+             ("sticky", sticky, sticky_sc, 0.7, 50)]
+    cases += [("thr", bx, sc, thr, SEQ_K)
+              for thr in (1.0, 1.5, 0.0, -0.5, float("nan"))]
+    cases += [("cap", bx, sc, 0.7, m) for m in (0, 1, 7)]
+    cases.append(("dead", bx, dead, 0.7, SEQ_K))
+    cases.append(("presorted", tb, presorted, 0.7, SEQ_K))
+    for s in (1, 200):
+        cases.append((f"segments{s}", *seq_candidates(s, s, SEQ_K, "ties"),
+                      0.7, SEQ_K))
+    for k in (1, 33, 257):
+        cases.append((f"k{k}", *seq_candidates(k, 16, k, "dense"), 0.5, k))
+    for tag, b, s_, thr, max_keep in cases:
+        boxes = torch.from_numpy(b).to(dev)
+        scores = torch.from_numpy(s_).to(dev)
+        before = suppress_mask_seq_cuda.launches
+        kept, picks = suppress_mask_seq(boxes, scores, thr, max_keep)
+        torch.cuda.synchronize()
+        if suppress_mask_seq_cuda.launches != before + 1:
+            fail(f"seq edge {tag}: the sequential kernel did not launch")
+        p_kept, p_picks = suppress_mask_seq_plain(boxes, scores, thr,
+                                                  max_keep)
+        if not (torch.equal(kept, p_kept) and torch.equal(picks, p_picks)):
+            fail(f"sequential kernel != plain ({tag}, thr {thr}, max_keep "
+                 f"{max_keep}): {int((kept != p_kept).sum())} mask entries, "
+                 f"{int((picks != p_picks).sum())} picks differ")
+        line("seq_vs_plain", regime=tag, thr=thr, segments=scores.shape[0],
+             k=scores.shape[1], max_keep=max_keep, equal=True,
+             kept=int(kept.sum()), picks=int((picks >= 0).sum()))
 
 
 def gather_phase(dev):
@@ -1455,8 +1716,13 @@ def frcnn_phases(dev, tmp, img_dir, shapes, gather_record):
         n_valid = int((seg_scores > 0).sum())
         if not 0 < int(kept.sum()) < n_valid:
             fail("faster_rcnn RPN segments: degenerate, nothing suppressed")
-        seq_ms = cuda_ms(lambda: suppress_mask_seq_cuda(
-            seg_boxes, seg_scores, thr, max_keep), 20)
+
+        def seq_run():
+            return suppress_mask_seq_cuda(seg_boxes, seg_scores, thr,
+                                          max_keep)
+
+        seq_ms = cuda_ms(seq_run, 20)
+        seq_dev_ms, seq_host_us = device_ms(seq_run), host_us(seq_run, 50)
         seq_plain_ms = cuda_ms(lambda: suppress_mask_seq_plain(
             seg_boxes, seg_scores, thr, max_keep), 2, warmup=1)
         bound, by, live, n_picks, most = seq_bound_ms(seg_boxes, seg_scores,
@@ -1474,7 +1740,8 @@ def frcnn_phases(dev, tmp, img_dir, shapes, gather_record):
              k=tuple(seg_scores.shape)[1], candidates=n_valid,
              kept=int(kept.sum()), picks=n_picks, most_picks=most,
              live_pairs=live, seq_kernel_ms=f"{seq_ms:.4f}",
-             seq_plain_ms=f"{seq_plain_ms:.3f}", seq_bound_ms=f"{bound:.4f}",
+             seq_device_ms=f"{seq_dev_ms:.4f}",
+             seq_host_us=f"{seq_host_us:.1f}", seq_plain_ms=f"{seq_plain_ms:.3f}", seq_bound_ms=f"{bound:.4f}",
              seq_bound_by=by, rows=int(k_dvalid.sum()),
              blocked_kernel_ms=f"{blocked_ms:.4f}",
              blocked_bound_ms=f"{blocked_bound:.4f}",

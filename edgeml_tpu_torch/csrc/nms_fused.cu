@@ -1,154 +1,74 @@
-// Fused greedy-NMS suppressor for Hopper (sm_90a): the exact greedy keep
-// mask of class-offset boxes sorted by descending score, one image per block.
+// Greedy-NMS suppressor for Hopper (sm_90a): the exact greedy keep mask of
+// class-offset boxes sorted by descending score, for candidate counts K up
+// to 1024, one thread-block cluster of 4 blocks per image.
 //
 // Replaces: edgeml_tpu/ops/nms_fused.py _kernel (the Pallas TPU kernel that
-// builds the suppression matrix in VMEM and solves the greedy fixpoint with
-// MXU matvecs). Plain PyTorch version: edgeml_tpu_torch/ops/nms_fused.py
-// greedy_keep_mask_plain; the two are bit-identical.
+// builds the whole (K, K) suppression relation in VMEM as bf16 and solves
+// the greedy fixpoint with MXU matvecs). Plain PyTorch version:
+// edgeml_tpu_torch/ops/nms_fused.py greedy_keep_mask_plain (the reference's
+// global fixpoint); it, the blocked greedy_keep_mask_blocked_plain and this
+// kernel are bit-identical. Keep rule: kept[i] iff valid[i] and no kept
+// j < i with iou(j, i) > thr, areas clamped at 0.
 //
 // What bounds it on this card: f32 CUDA-core arithmetic. At K = 1024 each
 // image has K(K-1)/2 ~ 5.2e5 IoU pairs (~15 f32 operations each, one an IEEE
-// division) against ~20 KB of input and 1 KB of output, so the work is far
-// above the memory roofline and sits on the non-tensor f32 rate. The greedy
-// recurrence itself is sequential in the candidate order.
+// division) against ~20 KB of input and 1 KB of output, far above the memory
+// roofline: 0.0075 ms for 64 images at the card's 67 TFLOP/s. The greedy
+// recurrence itself is sequential in candidate order.
 //
-// Design: one block of 1024 threads per image, everything in shared memory.
-//   Phase 1 builds the suppression relation as bits: target i owns one
-//   32-bit word per 32 suppressors, and bit (j - 32w) of word w is set iff
-//   j < i and iou(j, i) > thr. Words are stored transposed, word-major with a
-//   row stride of 32 * words + 1, so that the 32 lanes of a warp (consecutive
-//   targets, one word) write consecutive banks, and in phase 2 the 32 lanes
-//   (one word each, one target) read 32 distinct banks. At K = 1024 the bit
-//   matrix is 32 x 1025 x 4 B = 131,200 B of dynamic shared memory.
-//   Phase 2 is one warp walking i = 0 .. K-1 in order; lane l holds kept
-//   word l in a register, so kept_i = valid_i && !any_l(row_i[l] & kept[l])
-//   is one shared load, one AND and one __any_sync per candidate. This is the
-//   sequential greedy definition itself, hence the unique greedy answer that
-//   the TPU kernel reaches as a fixpoint.
+// What held the first form back. That form was one 1024-thread block per
+// image, the whole relation built with every division taken, then one warp
+// walking all K candidates in order (a shared load and an __any_sync each).
+// Its clock64() stamps on an NVIDIA H100 at 700 W (64 images, K = 1024):
+// load 0.1%, build 6%, walk 94% of a span of 0.61 M cycles; 0.31 ms a batch
+// of 64 on 64 of the 132 SMs.
 //
-// Exact arithmetic: IoU is evaluated op for op as in the reference
-// (min/max, subtract, clamp, multiply, add, subtract, clamp, IEEE divide,
-// strict compare with the f32-rounded threshold) with explicitly rounded
-// intrinsics, and the library is built with -fmad=false and without
-// --use_fast_math, so no contraction or approximate division can flip a
-// decision at the threshold. Class offsets are applied by the caller.
-// Inputs are assumed finite (fminf/fmaxf do not propagate NaN).
+// Design: nms_blocked.cu's, from nms_band.cuh, as a cluster of 4. Block r
+// owns band r (targets 256 r .. 256 r + 255) and builds its bits against
+// every suppressor below the band's end in its own shared memory (four
+// compares a pair, then the reference's arithmetic for the pairs that can
+// overlap, or every pair straight through where most overlap, the division
+// only within 2^-20 of the threshold), while the other three build theirs;
+// nothing at or after the end of the valid prefix is built or walked. When
+// the kept words of bands 0 .. r-1 have arrived, 256 threads test the
+// band's targets against them in parallel and one warp resolves the band's
+// triangle in 8 groups of 32 with a ballot fixpoint a group; the band's
+// kept words are pushed into the later blocks' shared memory as {mark,
+// word} 64-bit stores.
+// Shared memory of a block: boxes 16,384 + areas 4,096 + kept slots 256 +
+// band 32,896 + free words, prefix end and valid bytes 292 = 53,924 B, and
+// 512 threads, two blocks to an SM (64 registers a thread; at three to an
+// SM the build spilled and ran 45% slower): the card holds 62 clusters at
+// once, so the 64 images of a YOLOv5 batch run in two waves (62 and 2).
+//
+// Class offsets are applied by the caller. Inputs are assumed finite.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "nms_band.cuh"
 
 namespace {
 
-constexpr int kMaxK = 1024;
-constexpr int kThreads = 1024;
-
-__device__ __forceinline__ float box_area(float x1, float y1, float x2,
-                                          float y2) {
-  return __fmul_rn(fmaxf(__fsub_rn(x2, x1), 0.0f),
-                   fmaxf(__fsub_rn(y2, y1), 0.0f));
-}
-
-__global__ void __launch_bounds__(kThreads)
-greedy_keep_kernel(const float* __restrict__ boxes,
-                   const uint8_t* __restrict__ valid,
-                   uint8_t* __restrict__ out, int k, float thr) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int words = (k + 31) >> 5;
-  const int stride = (words << 5) + 1;
-  uint32_t* sup = reinterpret_cast<uint32_t*>(smem);  // words x stride
-  float* x1 = reinterpret_cast<float*>(sup + words * stride);
-  float* y1 = x1 + k;
-  float* x2 = y1 + k;
-  float* y2 = x2 + k;
-  float* area = y2 + k;
-  uint32_t* kept_words = reinterpret_cast<uint32_t*>(area + k);  // 32
-  uint8_t* vld = reinterpret_cast<uint8_t*>(kept_words + 32);    // k
-
-  const size_t img = blockIdx.x;
-  const float* bx = boxes + img * (size_t)k * 4;
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    const float a = bx[4 * i], b = bx[4 * i + 1];
-    const float c = bx[4 * i + 2], d = bx[4 * i + 3];
-    x1[i] = a;
-    y1[i] = b;
-    x2[i] = c;
-    y2[i] = d;
-    area[i] = box_area(a, b, c, d);
-    vld[i] = valid[img * (size_t)k + i];
-  }
-  __syncthreads();
-
-  // Phase 1: the suppression bits, one 32-bit word per (word w, target i).
-  const int total = words * k;
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int w = t / k;
-    const int i = t - w * k;
-    const int j0 = w << 5;
-    uint32_t bits = 0u;
-    if (j0 < i) {
-      const float ax1 = x1[i], ay1 = y1[i], ax2 = x2[i], ay2 = y2[i];
-      const float aa = area[i];
-      const int jn = min(32, i - j0);
-      for (int s = 0; s < jn; ++s) {
-        const int j = j0 + s;
-        const float ix = __fsub_rn(fminf(x2[j], ax2), fmaxf(x1[j], ax1));
-        const float iy = __fsub_rn(fminf(y2[j], ay2), fmaxf(y1[j], ay1));
-        const float inter = __fmul_rn(fmaxf(ix, 0.0f), fmaxf(iy, 0.0f));
-        const float denom =
-            fmaxf(__fsub_rn(__fadd_rn(area[j], aa), inter), 1e-12f);
-        const float iou = __fdiv_rn(inter, denom);
-        bits |= static_cast<uint32_t>(iou > thr) << s;
-      }
-    }
-    sup[w * stride + i] = bits;
-  }
-  __syncthreads();
-
-  // Phase 2: one warp walks the candidates in greedy (score) order.
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    uint32_t kept = 0u;
-    for (int i = 0; i < k; ++i) {
-      const uint32_t row = lane < words ? sup[lane * stride + i] : 0u;
-      const bool hit = __any_sync(0xffffffffu, (row & kept) != 0u);
-      if (!hit && vld[i] && lane == (i >> 5)) kept |= 1u << (i & 31);
-    }
-    kept_words[lane] = kept;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    out[img * (size_t)k + i] =
-        static_cast<uint8_t>((kept_words[i >> 5] >> (i & 31)) & 1u);
-  }
-}
-
-size_t shared_bytes(int k) {
-  const size_t words = (k + 31) / 32;
-  return words * (words * 32 + 1) * 4 + 5 * (size_t)k * 4 + 32 * 4 + k;
-}
+constexpr int kCluster = 4;     // blocks per image: K <= 1024
+constexpr int kMinBlocks = 2;
+const auto kKernel = nms_band::sorted_keep_kernel<kCluster, kMinBlocks>;
 
 }  // namespace
 
 extern "C" {
 
 // boxes: (batch, k, 4) f32 xyxy, contiguous, on the current device.
-// valid: (batch, k) bool bytes. out: (batch, k) bool bytes.
+// valid: (batch, k) bool bytes. out: (batch, k) bool bytes. 1 <= k <= 1024.
 // Launches on `stream`, does not synchronise, allocates nothing; returns
 // the cudaError_t of the launch (0 on success).
 int nms_fused_greedy_keep(const void* boxes, const void* valid, void* out,
                           int batch, int k, float thr, void* stream) {
-  if (batch < 0 || k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
-  if (batch == 0) return 0;
-  const size_t smem = shared_bytes(k);
-  cudaError_t err = cudaFuncSetAttribute(
-      greedy_keep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  greedy_keep_kernel<<<batch, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid),
-      static_cast<uint8_t*>(out), k, thr);
-  return (int)cudaGetLastError();
+  return nms_band::launch_sorted<kCluster, kMinBlocks>(boxes, valid, out,
+                                                       batch, k, thr, stream);
+}
+
+// The number of clusters (images) the current device holds at once.
+int nms_fused_max_active_clusters(int* clusters) {
+  return nms_band::max_active_clusters(
+      kKernel, kCluster, nms_band::sorted_shared_bytes<kCluster>(), clusters);
 }
 
 const char* nms_fused_error_string(int code) {

@@ -1,147 +1,325 @@
-// Sequential greedy NMS for Hopper (sm_90a): the literal select-max /
-// suppress loop over UNSORTED candidates, one segment (an image's level of
-// RPN proposals, or one image) per block.
+// Sequential greedy NMS for Hopper (sm_90a): the answer of the literal
+// select-max / suppress loop over UNSORTED candidates, one segment (an
+// image's level of RPN proposals, or one image) per thread-block cluster of
+// 4 blocks, K <= 1024 per segment.
 //
 // Replaces: edgeml_tpu/ops/nms_pallas.py _nms_kernel (the Pallas TPU kernel
 // that keeps the score row, the four box planes and the alive mask in VMEM
 // and runs max_det steps of argmax + IoU suppression on the VPU). Plain
-// PyTorch version: edgeml_tpu_torch/ops/nms_seq.py suppress_mask_seq_plain;
-// the two are bit-identical.
+// PyTorch version: edgeml_tpu_torch/ops/nms_seq.py suppress_mask_seq_plain
+// (the loop itself); the two are bit-identical in kept and picks.
 //
-// Each step picks the live candidate of largest score (the LOWEST index among
-// equal maxima, as jnp.argmax does: RPN scores are sigmoids and many saturate
-// to exactly 1.0), stops if that score is not > 0, records the pick, and
-// kills every live candidate whose IoU with the pick is > thr (the pick
-// itself included, since its IoU with itself is 1). At most max_keep steps
-// run; the loop also ends as soon as nothing is alive, which gives the same
-// result as running on.
+// The loop: each step picks the live candidate of largest score (the
+// LOWEST index among equal maxima, as jnp.argmax does: RPN scores are
+// sigmoids and many saturate to exactly 1.0), stops if nothing is live
+// (score > 0), records the pick, and kills every live candidate i with
+// !(iou(p, i) <= thr), the pick included; at most max_keep steps.
 //
-// What bounds it on this card: the serial chain of steps. The work is ~15
-// f32 operations per live candidate per step plus an argmax over K, tiny
-// against the card's rates; each step's pick depends on the previous step's
-// suppression, so the time is (steps) x (one block-wide argmax and two
-// barriers). The bound reported by chip_smoke.py counts the operations of
-// the steps this data needs.
+// What bounds it on this card: f32 CUDA-core arithmetic over the pairs of
+// live candidates (~15 operations a pair), against ~21 KB of input a
+// segment. chip_smoke.py's bound counts the loop's own work, 17 operations
+// per (step, live candidate), so that it compares across designs.
 //
-// Design: one block of 1024 threads per segment. Thread t holds candidate t
-// (box, area, score, alive) in registers, and the boxes and areas are also
-// in shared memory (20 KB) so that every thread can read the pick's box
-// after the argmax. Each step: a warp argmax on the key (score descending,
-// index ascending) with shuffles, the 32 warp winners through shared memory
-// to warp 0, a barrier, then each thread updates its own alive flag. All
-// segments of a batch run in one launch (RPN: images x 5 levels).
+// What held the first form back: it ran the loop as written, one
+// 1024-thread block per segment, and every pick was a block-wide argmax
+// with two barriers, ~1,840 cycles; the segment with the most picks (774 on
+// the RPN path) set the span: clock64() stamps on an NVIDIA H100 at 700 W
+// gave the pick loop 99.9% of 1.43 M cycles, 0.72 ms a batch of 16 images.
 //
-// Exact arithmetic: IoU op for op as in the TPU kernel (max/min, subtract,
-// clamp, multiply; area_pick + area - inter, clamp at 1e-12, IEEE divide,
-// `iou <= thr` with the f32-rounded threshold), with explicitly rounded
-// intrinsics, and the library is built with -fmad=false and without
-// --use_fast_math. area = (x2 - x1) * (y2 - y1), unclamped, as the TPU
-// kernel's caller builds it. Inputs are assumed finite.
+// The same answer in the sorted form. Let c_0, c_1, ... be the live
+// candidates in key order (score descending, index ascending). The live set
+// only shrinks, so the loop picks in strictly decreasing key order, and a
+// candidate is picked iff it is still live when it becomes the largest,
+// that is iff no earlier pick removes it: kept[c_t] iff no kept c_s, s < t,
+// with R(c_s, c_t), R(p, i) = !(iou(p, i) <= thr). That is the greedy keep
+// mask of the sorted candidates (the reference's own fixpoint, ops/nms.py
+// suppress_mask), computed here with nms_band.cuh's banded walk, with these
+// traps held exactly:
+//   * the order is part of this kernel: keys (score bits << 32 | ~index,
+//     distinct, positive floats ordered by their bits) are sorted in shared
+//     memory; dead candidates (score <= 0 or NaN) are key 0 and sort last;
+//   * the predicate is the loop's !(q <= thr), not q > thr (they differ for
+//     a NaN thr: every pair suppresses, a box itself too), with the areas
+//     unclamped, (x2 - x1) * (y2 - y1), and the loop's IoU op for op;
+//   * sticky picks: a pick p with !R(p, p) (zero or negative width or
+//     height, or thr >= 1) is never killed, so the loop picks it again at
+//     every later step and nothing after it. Its relation row gets every
+//     later target, so the walk keeps nothing after it, and the picks row
+//     ends p, p, ..., p up to max_keep;
+//   * the cap: only the first max_keep kept candidates in key order are
+//     picked and kept (the reference's cumsum cap, with the sticky rule);
+//     max_keep = 0 gives all-False masks.
+//
+// Design: every block of the cluster reads the segment's K scores and puts
+// their keys in order itself. It first compacts the live keys in index
+// order (a ballot and a popcount a word of 32) and checks whether they
+// already descend: the RPN's candidates come from a top-k, so they do, and
+// the order costs two barriers. Otherwise it sorts the keys with a bitonic
+// network of 55 steps, two keys a thread in registers (shuffles for strides
+// below 32, shared memory for 64 and up), which took 14-33 k cycles of the
+// critical block in clock64() stamps on an NVIDIA H100 at 700 W (up to 87 k
+// when the block sharing its SM builds), against 32-84 k for ranking by
+// counting and 33-160 k for the network in shared memory, both tried
+// first. Block r owns
+// sorted positions 256 r .. 256 r + 255: it loads the boxes and original
+// indices of every position below its band's end, computes the areas and
+// the sticky bits, builds its band's relation bits against every earlier
+// position (nms_band.cuh: the exact predicate where boxes can overlap, the
+// division only within 2^-20 of the threshold; sticky rows OR-ed in), waits for the kept words of bands
+// 0 .. r-1, tests its targets against them in parallel, resolves its own
+// triangle with the per-group ballot fixpoint, applies the cap (the picks
+// before it are the popcount of the words that arrived), pushes its capped
+// kept words to the later blocks, and writes its kept flags at the original
+// indices and its picks at their pick numbers. The block of the last live
+// band writes the tail of picks: -1, or the sticky last pick. Blocks past
+// the live prefix exit after the cluster barrier. All segments of a batch
+// run in one launch (RPN: images x 5 levels).
+// Shared memory of a block: sorted boxes 16,384 + band 32,896 (the sort
+// keys live there first) + areas 4,096 + original indices 4,096 + kept
+// slots 256 + sticky words 128 + free words and live count 36 = 57,892 B,
+// and 512 threads, two blocks to an SM (64 registers a thread; at three to
+// an SM, 40 registers, it spilled and an RPN batch took 0.171 ms against
+// 0.127 at two, with the earlier sort in shared memory): the card holds 62
+// clusters at once, so the 80 segments of an RPN batch of 16 run in two
+// waves.
+//
+// Inputs are assumed finite.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "nms_band.cuh"
 
 namespace {
 
-constexpr int kMaxK = 1024;
-constexpr int kThreads = 1024;
-constexpr unsigned kFull = 0xffffffffu;
+using namespace nms_band;
 
-// (v, j) beats (w, i) when v > w, or v == w and j < i.
-__device__ __forceinline__ void take_better(float& v, int& j, float ov,
-                                            int oj) {
-  if (ov > v || (ov == v && oj < j)) {
-    v = ov;
-    j = oj;
-  }
-}
+constexpr int kCluster = 4;
+constexpr int kMaxK = kCluster * kBand;  // 1024
+constexpr int kMaxWords = kMaxK / 32;    // 32
+constexpr int kMinBlocks = 2;            // two blocks to an SM
+constexpr size_t kBandBytes = (size_t)kMaxWords * kStride * 4;
+constexpr size_t kSharedBytes = (size_t)kMaxK * 16 + kBandBytes +
+                                (size_t)kMaxK * 4 + (size_t)kMaxK * 4 +
+                                kMaxWords * 8 + kMaxWords * 4 +
+                                kBandWords * 4 + 4;
 
-__device__ __forceinline__ void warp_argmax(float& v, int& j) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(kFull, v, off);
-    const int oj = __shfl_down_sync(kFull, j, off);
-    take_better(v, j, ov, oj);
-  }
-}
+static_assert((size_t)kMaxK * 16 + kMaxWords * 8 <= kBandBytes,
+              "the keys and their counts fit in the band's memory");
+static_assert(kMaxK == 2 * kThreads, "a thread holds two sort keys");
 
-__global__ void __launch_bounds__(kThreads)
-seq_nms_kernel(const float* __restrict__ boxes,
-               const float* __restrict__ scores, uint8_t* __restrict__ kept,
-               int32_t* __restrict__ picks, int k, int max_keep, float thr) {
-  __shared__ float sx1[kMaxK], sy1[kMaxK], sx2[kMaxK], sy2[kMaxK];
-  __shared__ float sarea[kMaxK];
-  __shared__ float wval[32];
-  __shared__ int widx[32];
-  __shared__ float pick_val;
-  __shared__ int pick_idx;
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+seq_keep_kernel(const float* __restrict__ boxes,
+                const float* __restrict__ scores,
+                uint8_t* __restrict__ kept_out, int32_t* __restrict__ picks,
+                int k, int max_keep, float thr) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* sbox = reinterpret_cast<float4*>(smem);  // by sorted position
+  uint32_t* band = reinterpret_cast<uint32_t*>(sbox + kMaxK);
+  // before the build, the band's memory holds the keys in index order, the
+  // live keys compacted, and the live counts of each word of 32
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(band);
+  unsigned long long* compact = keys + kMaxK;
+  uint32_t* live_words = reinterpret_cast<uint32_t*>(compact + kMaxK);
+  int* live_before = reinterpret_cast<int*>(live_words + kMaxWords);
+  float* area = reinterpret_cast<float*>(band + kMaxWords * kStride);
+  int* sidx = reinterpret_cast<int*>(area + kMaxK);  // original index
+  unsigned long long* kept =  // {1, word} of each band before this one
+      reinterpret_cast<unsigned long long*>(sidx + kMaxK);
+  uint32_t* sticky = reinterpret_cast<uint32_t*>(kept + kMaxWords);
+  uint32_t* free_words = sticky + kMaxWords;  // kBandWords
+  int* live_count = reinterpret_cast<int*>(free_words + kBandWords);
 
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const size_t seg = blockIdx.x;
-  const bool own = t < k;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = (int)cluster.block_rank();
+  const size_t seg = blockIdx.x / kCluster;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float* sc = scores + seg * (size_t)k;
+  const float* bx = boxes + seg * (size_t)k * 4;
+  uint8_t* kout = kept_out + seg * (size_t)k;
+  int32_t* pout = picks + seg * (size_t)max_keep;
 
-  float x1 = 0.f, y1 = 0.f, x2 = 0.f, y2 = 0.f, area = 0.f;
-  float score = -CUDART_INF_F;
-  bool alive = false;
-  if (own) {
-    const float* bx = boxes + (seg * k + t) * 4;
-    x1 = bx[0];
-    y1 = bx[1];
-    x2 = bx[2];
-    y2 = bx[3];
-    area = __fmul_rn(__fsub_rn(x2, x1), __fsub_rn(y2, y1));
-    score = scores[seg * k + t];
-    alive = score > 0.f;
-    sx1[t] = x1;
-    sy1[t] = y1;
-    sx2[t] = x2;
-    sy2[t] = y2;
-    sarea[t] = area;
-  }
-  bool mine = false;  // candidate t was picked
-  int step = 0;
-  for (; step < max_keep; ++step) {
-    float v = alive ? score : -CUDART_INF_F;
-    int j = t;
-    warp_argmax(v, j);
-    if (lane == 0) {
-      wval[warp] = v;
-      widx[warp] = j;
+  if (tid < kMaxWords) kept[tid] = 0ull;
+  // Keys: a live candidate beats another iff its key is larger (positive
+  // floats order as their bits; the lower index wins a tie); dead ones are
+  // 0 and beat nothing. Padded with 0 to kMaxK. Block r also clears the
+  // kept flags of the candidates 256 r .. 256 r + 255 that are never
+  // picked.
+  for (int i = tid; i < kMaxK; i += kThreads) {
+    unsigned long long key = 0ull;
+    if (i < k) {
+      const float s = sc[i];
+      if (s > 0.0f) {
+        key = ((unsigned long long)__float_as_uint(s) << 32) |
+              (unsigned long long)(0xffffffffu - (unsigned)i);
+      }
+      if ((key == 0ull || max_keep == 0) && (i >> 8) == r) kout[i] = 0;
     }
-    __syncthreads();  // warp winners (and, at step 0, the shared boxes)
-    if (warp == 0) {
-      v = wval[lane];
-      j = widx[lane];
-      warp_argmax(v, j);
-      if (lane == 0) {
-        pick_val = v;
-        pick_idx = j;
+    keys[i] = key;
+    const uint32_t word = __ballot_sync(kFull, key != 0ull);
+    if (lane == 0) live_words[i >> 5] = word;
+  }
+  __syncthreads();
+  if (warp == 0) {  // live candidates before each word of 32
+    const int c = __popc(live_words[lane]);
+    int incl = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int n = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += n;
+    }
+    live_before[lane] = incl - c;
+    if (lane == 31) *live_count = incl;
+  }
+  __syncthreads();
+  const int ke = max_keep > 0 ? *live_count : 0;  // sorted positions built
+  // every block of the cluster is resident and has cleared its kept slots
+  cluster.sync();
+
+  const int b0 = r * kBand;
+  if (b0 >= ke) {
+    if (r == 0) {  // nothing live: no pick
+      for (int s = tid; s < max_keep; s += kThreads) pout[s] = -1;
+    }
+    return;
+  }
+  const int nb = min(kBand, ke - b0);  // targets of this band
+  const int below = b0 + nb;           // suppressors j < below
+  const int w0 = r * kBandWords;       // first word of the band itself
+  const int last_rank = (ke - 1) / kBand;
+
+  // The live keys in index order (a live candidate's position is the number
+  // of live candidates before it). The RPN's candidates come from a top-k,
+  // so these usually are in key order already; then they are the order.
+  for (int i = tid; i < kMaxK; i += kThreads) {
+    const uint32_t word = live_words[i >> 5];
+    const uint32_t below_i = word & ((1u << (i & 31)) - 1u);
+    if ((word >> (i & 31)) & 1u)
+      compact[live_before[i >> 5] + __popc(below_i)] = keys[i];
+  }
+  __syncthreads();
+  bool in_order = true;
+  for (int p = tid; p + 1 < ke; p += kThreads)
+    in_order &= compact[p] > compact[p + 1];
+  const unsigned long long* order = compact;
+  if (!__syncthreads_and(in_order)) {
+    // Else a bitonic sort of the kMaxK keys, descending: sorted positions
+    // 0 .. ke-1 are the live candidates in key order. Thread (warp w, lane
+    // l) holds positions 64 w + l and 64 w + 32 + l in registers; of the 55
+    // steps, the 10 with a stride of 64 or more exchange through shared
+    // memory, stride 32 pairs a thread's own two keys, and smaller strides
+    // pair lanes by shuffles.
+    const int e0 = (warp << 6) + lane;
+    unsigned long long v0 = keys[e0], v1 = keys[e0 + 32];
+    for (int size = 2; size <= kMaxK; size <<= 1) {
+      const bool desc0 = (e0 & size) == 0, desc1 = ((e0 + 32) & size) == 0;
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        if (stride >= 64) {
+          keys[e0] = v0;
+          keys[e0 + 32] = v1;
+          __syncthreads();
+          const int a = 2 * tid - (tid & (stride - 1));  // a pair a thread
+          const unsigned long long ka = keys[a], kb = keys[a + stride];
+          if ((a & size) == 0 ? ka < kb : ka > kb) {
+            keys[a] = kb;
+            keys[a + stride] = ka;
+          }
+          __syncthreads();
+          v0 = keys[e0];
+          v1 = keys[e0 + 32];
+        } else if (stride == 32) {
+          if (desc0 ? v0 < v1 : v0 > v1) {
+            const unsigned long long t = v0;
+            v0 = v1;
+            v1 = t;
+          }
+        } else {
+          // the lower position of a pair keeps the larger key in a
+          // descending run, the smaller in an ascending one
+          const bool lower = (lane & stride) == 0;
+          const unsigned long long p0 = __shfl_xor_sync(kFull, v0, stride);
+          const unsigned long long p1 = __shfl_xor_sync(kFull, v1, stride);
+          v0 = lower == desc0 ? max(v0, p0) : min(v0, p0);
+          v1 = lower == desc1 ? max(v1, p1) : min(v1, p1);
+        }
       }
     }
-    __syncthreads();  // the pick
-    const float m = pick_val;
-    const int p = pick_idx;
-    if (!(m > 0.f)) break;  // uniform: every thread read the same m
-    if (t == 0) picks[seg * max_keep + step] = p;
-    if (t == p) mine = true;
-    if (alive) {
-      const float ix1 = fmaxf(sx1[p], x1);
-      const float iy1 = fmaxf(sy1[p], y1);
-      const float ix2 = fminf(sx2[p], x2);
-      const float iy2 = fminf(sy2[p], y2);
-      const float inter = __fmul_rn(fmaxf(__fsub_rn(ix2, ix1), 0.f),
-                                    fmaxf(__fsub_rn(iy2, iy1), 0.f));
-      const float denom =
-          fmaxf(__fsub_rn(__fadd_rn(sarea[p], area), inter), 1e-12f);
-      alive = __fdiv_rn(inter, denom) <= thr;
+    keys[e0] = v0;
+    keys[e0 + 32] = v1;
+    __syncthreads();
+    order = keys;
+  }
+
+  // The boxes, areas and original indices of the sorted positions below
+  // the band's end, and the sticky positions: those that R does not remove
+  // themselves (a warp a word).
+  const Threshold th = make_threshold(thr);
+  for (int p = tid; p < ((below + 31) & ~31); p += kThreads) {
+    bool st = false;
+    if (p < below) {
+      const int i = (int)(0xffffffffu - (unsigned)order[p]);
+      const float4 b = make_float4(bx[4 * i], bx[4 * i + 1], bx[4 * i + 2],
+                                   bx[4 * i + 3]);
+      const float a = area_signed(b.x, b.y, b.z, b.w);
+      sbox[p] = b;
+      area[p] = a;
+      sidx[p] = i;
+      st = !suppresses<true>(b, a, b, a, th);
     }
+    const uint32_t word = __ballot_sync(kFull, st);
+    if (lane == 0) sticky[p >> 5] = word;
   }
-  for (int s = step + t; s < max_keep; s += blockDim.x) {
-    picks[seg * max_keep + s] = -1;
+  __syncthreads();
+
+  build_band<true, true>(sbox, area, band, sticky, b0, nb, w0, thr);
+  __syncthreads();
+  wait_prefix(kept, w0);
+  prefix_test(band, kept, w0, tid < nb, free_words);
+  __syncthreads();
+  if (warp != 0) return;
+
+  uint32_t kb[kBandWords];
+  walk_band(band, w0, (nb + 31) >> 5, free_words, kb);
+  // The cap: the picks before this band are the kept bits that arrived;
+  // this band's follow in order up to max_keep.
+  int before = lane < w0 ? __popc((uint32_t)kept[lane]) : 0;
+  before = __reduce_add_sync(kFull, before);
+  int room = max_keep - before;
+#pragma unroll
+  for (int g = 0; g < kBandWords; ++g) {
+    uint32_t w = room > 0 ? kb[g] : 0u;
+    while (__popc(w) > room) w &= ~(0x80000000u >> __clz(w));
+    kb[g] = w;
+    room -= __popc(w);
   }
-  if (own) kept[seg * k + t] = static_cast<uint8_t>(mine);
+  push_kept(cluster, kept, r, last_rank, kb);
+
+  int n = before;  // pick number of the group's first kept position
+  int last = -1;   // the band's last kept position
+#pragma unroll
+  for (int g = 0; g < kBandWords; ++g) {
+    const int p = b0 + (g << 5) + lane;
+    if (p < below) {
+      const int orig = sidx[p];
+      const uint32_t bit = (kb[g] >> lane) & 1u;
+      kout[orig] = static_cast<uint8_t>(bit);
+      if (bit) pout[n + __popc(kb[g] & ((1u << lane) - 1u))] = orig;
+    }
+    n += __popc(kb[g]);
+    if (kb[g] != 0u) last = b0 + (g << 5) + 31 - __clz(kb[g]);
+  }
+  if (r == last_rank && n < max_keep) {
+    // The loop ran out of live candidates after n picks, or its last pick
+    // is sticky and is picked at every remaining step.
+    for (int w = w0 - 1; w >= 0 && last < 0; --w) {
+      const uint32_t word = (uint32_t)kept[w];
+      if (word != 0u) last = (w << 5) + 31 - __clz(word);
+    }
+    const int fill =
+        last >= 0 && ((sticky[last >> 5] >> (last & 31)) & 1u) ? sidx[last]
+                                                                : -1;
+    for (int s = n + lane; s < max_keep; s += 32) pout[s] = fill;
+  }
+  // the remote stores have landed before this block gives up its SM
+  __threadfence();
 }
 
 }  // namespace
@@ -151,7 +329,7 @@ extern "C" {
 // boxes: (segments, k, 4) f32 xyxy, contiguous, on the current device.
 // scores: (segments, k) f32; entries <= 0 never participate.
 // kept: (segments, k) bool bytes. picks: (segments, max_keep) int32, the
-// picked indices in pick order, -1 after the last pick.
+// picked indices in pick order, -1 after the last pick. 1 <= k <= 1024.
 // Launches on `stream`, does not synchronise, allocates nothing; returns the
 // cudaError_t of the launch (0 on success).
 int nms_seq_suppress(const void* boxes, const void* scores, void* kept,
@@ -160,12 +338,25 @@ int nms_seq_suppress(const void* boxes, const void* scores, void* kept,
   if (segments < 0 || k < 1 || k > kMaxK || max_keep < 0)
     return (int)cudaErrorInvalidValue;
   if (segments == 0) return 0;
-  seq_nms_kernel<<<segments, kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(boxes), static_cast<const float*>(scores),
-      static_cast<uint8_t*>(kept), static_cast<int32_t*>(picks), k, max_keep,
-      thr);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cudaError_t err =
+      configure(seq_keep_kernel, kCluster, kSharedBytes, &cfg, attr,
+                segments, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, seq_keep_kernel,
+                           static_cast<const float*>(boxes),
+                           static_cast<const float*>(scores),
+                           static_cast<uint8_t*>(kept),
+                           static_cast<int32_t*>(picks), k, max_keep, thr);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The number of clusters (segments) the current device holds at once.
+int nms_seq_max_active_clusters(int* clusters) {
+  return max_active_clusters(seq_keep_kernel, kCluster, kSharedBytes,
+                             clusters);
 }
 
 const char* nms_seq_error_string(int code) {

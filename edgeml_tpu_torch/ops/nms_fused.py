@@ -8,15 +8,16 @@ by descending score:
 ``greedy_keep_mask_fused`` is the entry point and dispatches on the candidate
 count K as the reference does. For a CUDA tensor it launches, or raises:
 
-  * K <= 1024: the kernel of ``csrc/nms_fused.cu`` (one block per image, the
-    whole suppression relation as bits in shared memory, a one-warp greedy
-    walk), ``greedy_keep_mask_cuda``;
-  * 1024 < K <= 2048: the blocked kernel of ``csrc/nms_blocked.cu`` (a
-    cluster of 8 blocks per image: each builds one band of 256 targets in
-    its own shared memory at the same time, and the bands are decided in
-    order, each block handing its kept words to the later ones),
-    ``greedy_keep_mask_blocked_cuda``;
+  * K <= 1024: the kernel of ``csrc/nms_fused.cu`` (a cluster of 4 blocks
+    per image), ``greedy_keep_mask_cuda``;
+  * 1024 < K <= 2048: the blocked kernel of ``csrc/nms_blocked.cu`` (the
+    same kernel as a cluster of 8), ``greedy_keep_mask_blocked_cuda``;
   * larger K: ValueError.
+
+Both are ``csrc/nms_band.cuh``'s banded walk: block r of the cluster builds
+the suppression bits of band r (256 targets) in its own shared memory while
+the others build theirs, and the bands are decided in order, each block
+handing its kept words to the later ones.
 
 It takes a plain version only for a tensor on the CPU: the global fixpoint
 ``greedy_keep_mask_plain`` for K <= 1024 and the blocked fixpoint
@@ -34,8 +35,8 @@ import ctypes
 import torch
 
 MAX_K = 1024
-"""Largest candidate count the monolithic kernel takes (its bit matrix fills
-128 KB of shared memory at K = 1024)."""
+"""Largest candidate count the monolithic kernel takes (a cluster of 4 bands
+of 256)."""
 
 MAX_K_BLOCKED = 2048
 """Largest candidate count the blocked kernel takes (the reference's
@@ -70,10 +71,6 @@ def _load(name: str):
         err = getattr(lib, f"{name}_error_string")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
-        if name == "nms_blocked":
-            lib.nms_blocked_max_active_clusters.restype = ctypes.c_int
-            lib.nms_blocked_max_active_clusters.argtypes = [
-                ctypes.POINTER(ctypes.c_int)]
         _libs[name] = lib
     return lib
 
@@ -227,17 +224,25 @@ def greedy_keep_mask_blocked_cuda(boxes: torch.Tensor, valid: torch.Tensor,
 greedy_keep_mask_blocked_cuda.launches = 0
 
 
-def blocked_max_active_clusters() -> int:
-    """How many images' clusters of the blocked kernel the current CUDA
-    device holds at once (``cudaOccupancyMaxActiveClusters`` at the kernel's
-    block size and shared memory); more images run in waves."""
-    lib = _load("nms_blocked")
+def max_active_clusters(name: str) -> int:
+    """How many clusters of the kernel of ``csrc/<name>.cu`` (``nms_fused``,
+    ``nms_blocked`` or ``nms_seq``: a cluster per image or segment) the
+    current CUDA device holds at once (``cudaOccupancyMaxActiveClusters`` at
+    the kernel's block size and shared memory); more run in waves."""
+    from .. import _build
+
+    lib = _build.load_library(name)
+    fn = getattr(lib, f"{name}_max_active_clusters")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     n = ctypes.c_int(0)
-    rc = lib.nms_blocked_max_active_clusters(ctypes.byref(n))
+    rc = fn(ctypes.byref(n))
     if rc != 0:
-        msg = lib.nms_blocked_error_string(rc).decode()
-        raise RuntimeError(
-            f"nms_blocked occupancy query failed: CUDA error {rc} ({msg})")
+        err = getattr(lib, f"{name}_error_string")
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{name} occupancy query failed: CUDA error {rc} "
+                           f"({err(rc).decode()})")
     return n.value
 
 

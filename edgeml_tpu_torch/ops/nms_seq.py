@@ -13,11 +13,16 @@ with area = (x2 - x1) * (y2 - y1) as the reference builds it. Candidates of
 score <= 0 are never live.
 
 ``suppress_mask_seq`` is the entry point. For a CUDA tensor it launches the
-kernel of ``csrc/nms_seq.cu`` (``suppress_mask_seq_cuda``: one block of 1024
-threads per segment, so K <= 1024; a larger K raises), or raises; it takes
-the plain version ``suppress_mask_seq_plain`` (the same loop in PyTorch ops,
+kernel of ``csrc/nms_seq.cu`` (``suppress_mask_seq_cuda``: a cluster of 4
+blocks per segment, K <= 1024; a larger K raises), or raises; it takes the
+plain version ``suppress_mask_seq_plain`` (the same loop in PyTorch ops,
 batched over segments, the same IoU arithmetic op for op) only for a tensor
-on the CPU. The two are bit-identical.
+on the CPU. The two are bit-identical. The kernel reaches the loop's answer
+in its sorted form: the loop picks in strictly decreasing (score, -index)
+order, so its picks are the greedy keep mask of the live candidates sorted
+by that key, with a pick that does not remove itself (zero or negative
+width or height, thr >= 1) picked again at every remaining step, capped at
+``max_keep`` picks.
 
 ``suppress_mask`` and ``nms_seq`` are the reference's two wrappers of the
 suppressor (RPN proposal filtering, and class-aware NMS on pre-scored rows).
@@ -32,7 +37,8 @@ import torch
 from .nms import MAX_WH
 
 MAX_K = 1024
-"""Largest candidate count per segment the kernel takes (one thread each)."""
+"""Largest candidate count per segment the kernel takes (a cluster of 4
+bands of 256)."""
 
 _lib = None
 

@@ -54,11 +54,14 @@ def fuzz(seed, b, k, spread, ncls):
     return torch.from_numpy(off), torch.from_numpy(scores)
 
 
-@pytest.mark.parametrize("k", [1024, 1000, 256, 33])
+@pytest.mark.parametrize("k", [1024, 1000, 300, 257, 256, 33, 1])
 @pytest.mark.parametrize("thr", [0.6, 0.45])
 @pytest.mark.parametrize("seed,spread,ncls",
                          [(0, 80.0, 1), (1, 300.0, 4), (2, 2000.0, 80)])
 def test_kernel_equals_plain(cuda, seed, spread, ncls, thr, k):
+    """K <= 1024 goes to the monolithic kernel (a cluster of 4 bands of
+    256, partial bands and words at ragged K), equal to the global plain
+    version on the card and on the CPU."""
     boxes, scores = fuzz(seed, 8, k, spread, ncls)
     boxes, scores = boxes.to(cuda), scores.to(cuda)
     before = greedy_keep_mask_cuda.launches
@@ -69,6 +72,45 @@ def test_kernel_equals_plain(cuda, seed, spread, ncls, thr, k):
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), greedy_keep_mask_plain(
         boxes.cpu(), scores.cpu(), thr))
+
+
+@pytest.mark.parametrize("b", [1, 16, 64, 80, 200])
+@pytest.mark.parametrize("case", ["fuzz", "holes", "thr0", "thr_negative",
+                                  "thr1", "ties"])
+def test_kernel_edge_cases(cuda, case, b):
+    """The monolithic kernel at K = 1024 (the YOLOv5 tail's shape at B =
+    64) on one image, 16, 64, 80 and more images than the card holds
+    clusters at once: an all-invalid image, invalid holes (one across a
+    band's edge), whole leading bands invalid, thr = 0 (any overlap
+    suppresses), thr < 0 (disjoint pairs too), thr = 1 (nothing does) and
+    exact IoU ties at the threshold. Equal to the blocked and the global
+    plain versions."""
+    k, thr = 1024, {"thr0": 0.0, "thr_negative": -0.5, "thr1": 1.0}.get(
+        case, 0.6)
+    boxes, scores = fuzz(b + len(case), b, k, 300.0, 4)
+    if case == "holes":
+        scores[0, 100:300] = 0.0
+        scores[-1, 5] = 0.0
+        scores[-1, 700:800] = 0.0
+        if b > 2:
+            scores[1] = 0.0
+            scores[2, :600] = 0.0
+    elif case == "ties":
+        thr = float(np.float32(1) / np.float32(3))
+        boxes, scores = tie_boxes(b, b, k)
+        boxes[0, 0] = torch.tensor([0.0, 0.0, 3.0, 7.0])
+        boxes[0, 1] = torch.tensor([0.0, 0.0, 1.0, 7.0])
+    boxes, scores = boxes.to(cuda), scores.to(cuda)
+    before = greedy_keep_mask_cuda.launches
+    got = greedy_keep_mask_fused(boxes, scores, thr)
+    torch.cuda.synchronize()
+    assert greedy_keep_mask_cuda.launches == before + 1
+    assert torch.equal(got, greedy_keep_mask_blocked_plain(boxes, scores, thr))
+    assert torch.equal(got, greedy_keep_mask_plain(boxes, scores, thr))
+    if case == "thr1":
+        assert torch.equal(got, scores > 0)
+    elif case == "holes" and b > 2:
+        assert not got[1].any()
 
 
 @pytest.mark.parametrize("b", [8, 24])
@@ -297,12 +339,13 @@ def seq_candidates(seed, s, k, regime):
     return torch.from_numpy(boxes), torch.from_numpy(scores)
 
 
-@pytest.mark.parametrize("k", [1024, 1000, 300, 33])
+@pytest.mark.parametrize("k", [1024, 1000, 300, 257, 256, 33, 1])
 @pytest.mark.parametrize("regime", ["dense", "sparse", "ties"])
 @pytest.mark.parametrize("thr", [0.7, 0.5])
 def test_seq_kernel_equals_plain(cuda, k, regime, thr):
     """The sequential kernel's kept masks and picks equal the plain loop's
-    on the card and on the CPU, at max_keep 8 and K."""
+    on the card and on the CPU, at max_keep 8 and K (partial bands and
+    words at ragged K)."""
     boxes, scores = seq_candidates(k, 16, k, regime)
     boxes, scores = boxes.to(cuda), scores.to(cuda)
     for max_keep in (8, k):
@@ -321,6 +364,74 @@ def test_seq_kernel_equals_plain(cuda, k, regime, thr):
         if max_keep == k:
             assert torch.equal(kept, tnms.suppress_mask(boxes, scores, thr,
                                                         k))
+
+
+def seq_edge(case, s, k=1000):
+    """(boxes, scores, thr, max_keeps) of one regime the kernel's sorted
+    form must get exactly right, over s segments of k candidates."""
+    boxes, scores = seq_candidates(k + s + len(case), s, k,
+                                   "ties" if case in ("ties", "presorted")
+                                   else "dense")
+    bx, sc = boxes.numpy(), scores.numpy()
+    thr = {"thr1": 1.0, "thr0": 0.0, "thr_negative": -0.5,
+           "nan": float("nan")}.get(case, 0.7)
+    max_keeps = (k,)
+    if case == "sticky":
+        rng = np.random.default_rng(s)
+        for seg in range(s):
+            hit = rng.choice(k, 12, replace=False)
+            bx[seg, hit[:4], 2] = bx[seg, hit[:4], 0]  # zero width
+            bx[seg, hit[4:8], 3] = bx[seg, hit[4:8], 1]  # zero height
+            bx[seg, hit[8:], 0], bx[seg, hit[8:], 2] = \
+                bx[seg, hit[8:], 2], bx[seg, hit[8:], 0].copy()  # x2 < x1
+            sc[seg, hit[::3]] = np.float32(0.999)  # picked early
+        max_keeps = (k, 50)
+    elif case == "caps":
+        max_keeps = (0, 1, 7)
+    elif case == "dead":
+        sc[0] = 0.0
+        sc[-1, ::2] = 0.0
+    elif case == "presorted":
+        # a top-k's order: scores descending in index order (saturated ties
+        # in index order), dead candidates in between; the kernel takes
+        # this order as it is
+        live = sc > 0
+        sc[:] = -np.sort(-sc, axis=1)
+        sc[~live] = 0.0
+    return boxes, scores, thr, max_keeps
+
+
+@pytest.mark.parametrize("s", [1, 16, 64, 80, 200])
+@pytest.mark.parametrize("case", ["sticky", "thr1", "thr0", "thr_negative",
+                                  "nan", "caps", "dead", "ties",
+                                  "presorted"])
+def test_seq_kernel_edge_cases(cuda, case, s):
+    """The sequential kernel at K = 1000 (the RPN's segment; 80 segments is
+    a batch of 16) on 1 to 200 segments (more than the card holds clusters
+    at once): sticky picks (zero width, zero height, x2 < x1: the pick is
+    never removed, picked at every remaining step), thr = 1 (every box
+    sticky), thr = 0, thr < 0, a NaN thr (every pair suppresses, a box
+    itself too), caps of 0, 1 and 7, dead segments, saturated 1.0 ties, and
+    candidates already in key order (as the RPN's top-k gives them). kept
+    and picks equal the plain loop's on the card and on the CPU."""
+    boxes, scores, thr, max_keeps = seq_edge(case, s)
+    cb, cs = boxes.to(cuda), scores.to(cuda)
+    for max_keep in max_keeps:
+        before = suppress_mask_seq_cuda.launches
+        kept, picks = suppress_mask_seq(cb, cs, thr, max_keep)
+        torch.cuda.synchronize()
+        assert suppress_mask_seq_cuda.launches == before + 1
+        want_kept, want_picks = suppress_mask_seq_plain(cb, cs, thr, max_keep)
+        assert torch.equal(kept, want_kept)
+        assert torch.equal(picks, want_picks)
+        cpu_kept, cpu_picks = suppress_mask_seq_plain(boxes, scores, thr,
+                                                      max_keep)
+        assert torch.equal(kept.cpu(), cpu_kept)
+        assert torch.equal(picks.cpu(), cpu_picks)
+        if case in ("sticky", "thr1") and max_keep > 0:
+            assert bool((picks[:, -1] >= 0).all())  # a pick repeats
+        if case == "dead":
+            assert not kept[0].any() and bool((picks[0] == -1).all())
 
 
 def test_seq_kernel_rejects_large_k(cuda):

@@ -326,6 +326,50 @@ def test_keep_mask_blocked_plain_edge_cases_match_jax(case):
         assert 0 < want.sum() < (sc > 0).sum()
 
 
+@pytest.mark.parametrize("case", ["k33", "k257", "k1000", "all_invalid",
+                                  "holes", "ties"])
+def test_keep_mask_blocked_plain_at_monolithic_k_matches_jax(case):
+    """K <= 1024, where the monolithic kernel runs the blocked kernel's
+    banded walk as a cluster of 4 bands of 256: the blocked plain version
+    (block = 256) == the global plain version == JAX greedy_keep_mask with
+    and without block=256, bit for bit, on ragged K (a partial last band and
+    word), an all-invalid image, invalid holes (one across a band's edge)
+    and exact IoU ties at the threshold. The card holds the kernel against
+    both plain versions."""
+    k = {"k33": 33, "k257": 257, "k1000": 1000}.get(case, 1024)
+    thr = 0.6
+    off, sc = fuzz_boxes(len(case) + k, 2, k, 300.0, 4)
+    if case == "all_invalid":
+        sc[0] = 0.0
+    elif case == "holes":
+        sc[0, 200:300] = 0.0
+        sc[1, 5] = 0.0
+        sc[1, 700:800] = 0.0
+    elif case == "ties":
+        thr = float(np.float32(1) / np.float32(3))
+        rng = np.random.default_rng(13)
+        xy = rng.integers(0, 24, (2, k, 2))
+        off = np.concatenate([xy, xy + rng.integers(1, 13, xy.shape)],
+                             axis=-1).astype(np.float32)
+        off[0, 0] = [0, 0, 3, 7]  # a pair at the threshold, by hand
+        off[0, 1] = [0, 0, 1, 7]
+    jb, js = jnp.asarray(off), jnp.asarray(sc)
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda bb, ss: greedy_keep_mask(bb, ss, thr, block=256)))(jb, js))
+    np.testing.assert_array_equal(want, np.asarray(jax.jit(jax.vmap(
+        lambda bb, ss: greedy_keep_mask(bb, ss, thr)))(jb, js)))
+    tb, ts = torch.from_numpy(off), torch.from_numpy(sc)
+    got = greedy_keep_mask_blocked_plain(tb, ts, thr, block=256).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(greedy_keep_mask_plain(tb, ts, thr).numpy(),
+                                  want)
+    assert not want[sc <= 0].any()
+    if case == "all_invalid":
+        assert not want[0].any() and want[1].any()
+    elif k > 33:  # 33 spread boxes of 4 classes rarely overlap
+        assert 0 < want.sum() < (sc > 0).sum()
+
+
 def test_keep_mask_blocked_matches_interpret_mode_kernel():
     """The blocked plain version == the reference's blocked Pallas kernel
     (_kernel_blocked) run in interpret mode at K = 2048, on clustered boxes

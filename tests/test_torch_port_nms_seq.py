@@ -74,6 +74,155 @@ def greedy_numpy(boxes, scores, thr, max_keep):
     return kept, picks
 
 
+def sorted_numpy(boxes, scores, thr, max_keep, band=256):
+    """The sorted form of the loop that ``csrc/nms_seq.cu`` computes, in
+    NumPy f32: rank the live candidates by key (score descending, index
+    ascending), build the relation R(j, i) = !(iou(j, i) <= thr) of earlier
+    j over later i with sticky rows (a j with !R(j, j) removes every later
+    target), walk it in bands of ``band`` (each band's targets against the
+    kept of the bands before it, then its own triangle in groups of 32 by
+    the fixpoint kw = cand & ~hit(kw) iterated from cand), keep the first
+    ``max_keep`` kept in key order, and fill the picks after the last with
+    it if it is sticky, else -1. Returns (kept, picks)."""
+    k = len(scores)
+    thr = np.float32(thr)
+    live = scores > 0
+    keys = np.where(live, (scores.view(np.uint32).astype(np.uint64) << 32)
+                    | (0xffffffff - np.arange(k)).astype(np.uint64), 0)
+    order = np.argsort(keys, kind="stable")[::-1][:int(live.sum())]
+    if max_keep == 0:
+        order = order[:0]
+    n = len(order)
+    x1, y1, x2, y2 = boxes[order].T
+    area = (x2 - x1) * (y2 - y1)
+    ix = np.minimum(x2[:, None], x2[None]) - np.maximum(x1[:, None], x1[None])
+    iy = np.minimum(y2[:, None], y2[None]) - np.maximum(y1[:, None], y1[None])
+    inter = np.maximum(ix, np.float32(0)) * np.maximum(iy, np.float32(0))
+    q = inter / np.maximum(area[:, None] + area[None] - inter,
+                           np.float32(1e-12))
+    rel = ~(q <= thr)  # rel[j, i]: j removes i
+    sticky = ~np.diagonal(rel)
+    rel = (rel | sticky[:, None]) & np.triu(np.ones((n, n), bool), 1)
+    kept_s = np.zeros(n, bool)
+    for b0 in range(0, n, band):
+        b1 = min(b0 + band, n)
+        free = ~(rel[:b0, b0:b1] & kept_s[:b0, None]).any(axis=0)
+        for g0 in range(b0, b1, 32):
+            g1 = min(g0 + 32, b1)
+            cand = free[g0 - b0:g1 - b0] \
+                & ~(rel[b0:g0, g0:g1] & kept_s[b0:g0, None]).any(axis=0)
+            kw = cand
+            while True:
+                new = cand & ~(rel[g0:g1, g0:g1] & kw[:, None]).any(axis=0)
+                if np.array_equal(new, kw):
+                    break
+                kw = new
+            kept_s[g0:g1] = kw
+    pos = np.flatnonzero(kept_s)[:max_keep]
+    kept = np.zeros(k, bool)
+    kept[order[pos]] = True
+    picks = np.full(max_keep, -1, np.int32)
+    picks[:len(pos)] = order[pos]
+    if 0 < len(pos) < max_keep and sticky[pos[-1]]:
+        picks[len(pos):] = order[pos[-1]]
+    return kept, picks
+
+
+def edge_case(case):
+    """(boxes, scores, thr, max_keep) of one regime the sorted form must
+    get exactly right."""
+    k = {"k1": 1, "k33": 33, "k257": 257}.get(case, 200)
+    boxes, scores = candidates(60 + k + len(case),
+                               k, "ties" if case == "ties" else "dense")
+    thr, max_keep = 0.7, k
+    if case in ("zero_area", "negative_area"):
+        rng = np.random.default_rng(61)
+        hit = rng.choice(k, 12, replace=False)
+        if case == "zero_area":  # zero width or zero height
+            boxes[hit[:6], 2] = boxes[hit[:6], 0]
+            boxes[hit[6:], 3] = boxes[hit[6:], 1]
+        else:  # x2 < x1, one with y2 < y1 too (a positive signed area)
+            boxes[hit, 0], boxes[hit, 2] = boxes[hit, 2], boxes[hit, 0].copy()
+            boxes[hit[0], 1], boxes[hit[0], 3] = boxes[hit[0], 3], \
+                boxes[hit[0], 1].copy()
+        scores[hit[:4]] = np.float32(0.99)  # picked early
+        scores[hit[4:]] = np.float32(0.01)  # picked late, if at all
+    elif case == "thr1":
+        thr = 1.0
+    elif case == "thr_above1":
+        thr, max_keep = 1.5, 40
+    elif case == "thr0":
+        thr = 0.0
+    elif case == "thr_negative":
+        thr = -0.5
+    elif case == "cap0":
+        max_keep = 0
+    elif case == "cap1":
+        max_keep = 1
+    elif case == "cap_short":
+        max_keep = 9
+    elif case == "all_dead":
+        scores[:] = 0.0
+        scores[::7] = -1.0
+    elif case == "k1":
+        scores[:] = 0.5
+    return boxes, scores, thr, max_keep
+
+
+EDGE_CASES = ["zero_area", "negative_area", "thr1", "thr_above1", "thr0",
+              "thr_negative", "cap0", "cap1", "cap_short", "ties", "all_dead",
+              "k1", "k33", "k257"]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_sorted_form_equals_the_loop(case):
+    """The kernel's sorted formulation (a NumPy transcription) gives the
+    loop's kept mask and picks bit for bit: the plain loop, and the
+    interpret-mode Pallas kernel's kept mask, on sticky zero-area and
+    negative-area boxes, thr >= 1, thr = 0 and thr < 0, caps of 0, 1 and
+    below the pick count, saturated 1.0 ties, an all-dead segment, K = 1
+    and ragged K."""
+    boxes, scores, thr, max_keep = edge_case(case)
+    want_kept, want_picks = sorted_numpy(boxes, scores, thr, max_keep)
+    kept, picks = suppress_mask_seq_plain(torch.from_numpy(boxes)[None],
+                                          torch.from_numpy(scores)[None], thr,
+                                          max_keep)
+    np.testing.assert_array_equal(kept[0].numpy(), want_kept)
+    np.testing.assert_array_equal(picks[0].numpy(), want_picks)
+    if max_keep > 0:  # the Pallas kernel takes max_det >= 1
+        np.testing.assert_array_equal(
+            np.asarray(jax_pallas_mask(jnp.asarray(boxes), jnp.asarray(scores),
+                                       thr, max_keep)), want_kept)
+    n_picks = int((want_picks >= 0).sum())
+    if case in ("zero_area", "negative_area", "thr1", "thr_above1"):
+        # a sticky pick repeats to the end
+        assert n_picks == max_keep and want_picks[-1] == want_picks[-2]
+    elif case == "cap0":
+        assert want_picks.shape == (0,) and not want_kept.any()
+    elif case == "all_dead":
+        assert n_picks == 0 and not want_kept.any()
+    elif case in ("cap1", "cap_short", "k1"):
+        assert want_kept.sum() == n_picks == min(max_keep, 9)
+    else:
+        assert 0 < want_kept.sum() == n_picks < (scores > 0).sum()
+
+
+@pytest.mark.parametrize("regime", REGIMES)
+def test_sorted_form_equals_the_loop_at_rpn_size(regime):
+    """K = 1000 in four bands, with a NaN threshold on one segment (every
+    pair suppresses, a box itself too): the sorted form == the plain loop,
+    kept and picks."""
+    boxes, scores = candidates(70, 1000, regime, segments=2)
+    for s, thr in ((0, 0.7), (1, float("nan"))):
+        want_kept, want_picks = sorted_numpy(boxes[s], scores[s], thr, 1000)
+        kept, picks = suppress_mask_seq_plain(
+            torch.from_numpy(boxes[s:s + 1]),
+            torch.from_numpy(scores[s:s + 1]), thr, 1000)
+        np.testing.assert_array_equal(kept[0].numpy(), want_kept)
+        np.testing.assert_array_equal(picks[0].numpy(), want_picks)
+    assert want_kept.sum() == 1  # the NaN threshold: the first pick only
+
+
 @pytest.mark.parametrize("regime", REGIMES)
 @pytest.mark.parametrize("k", [96, 300])
 def test_plain_matches_interpret_mode_kernel(regime, k):

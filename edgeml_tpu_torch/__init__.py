@@ -6,11 +6,12 @@ for Hopper (``csrc/``, built at first use by ``_build.py``). This package
 imports torch and numpy only — never JAX, and nothing of the JAX package.
 
 Ported so far: detection serving, from an image directory to per-image
-detection files, for YOLOv5 (slice 1), SSDLite320-MobileNetV3-Large and
-RetinaNet-ResNet50-FPN-v2 (slice 2), with both greedy-NMS suppressors (up to
-1024 and up to 2048 candidates) as CUDA kernels (``ops/nms_fused.py``).
+detection files, for all five detector families, with every Pallas kernel
+of the reference as a CUDA kernel; and the reward path (ORIE/DCSB rewards,
+``reward/``) and the offloading-policy evaluation (``eval.py``) with their
+CLIs.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
 
-__all__ = ["data", "models", "ops"]
+__all__ = ["data", "models", "ops", "reward"]

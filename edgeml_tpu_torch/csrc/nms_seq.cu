@@ -1,7 +1,8 @@
 // Sequential greedy NMS for Hopper (sm_90a): the answer of the literal
 // select-max / suppress loop over UNSORTED candidates, one segment (an
 // image's level of RPN proposals, or one image) per thread-block cluster of
-// 4 blocks, K <= 1024 per segment.
+// 4 blocks, K <= 1024 per segment; above that the literal loop itself, one
+// block per segment (seq_wide_kernel, at the end of this file).
 //
 // Replaces: edgeml_tpu/ops/nms_pallas.py _nms_kernel (the Pallas TPU kernel
 // that keeps the score row, the four box planes and the alive mask in VMEM
@@ -84,6 +85,8 @@
 // waves.
 //
 // Inputs are assumed finite.
+
+#include <math_constants.h>
 
 #include "nms_band.cuh"
 
@@ -322,6 +325,128 @@ seq_keep_kernel(const float* __restrict__ boxes,
   __threadfence();
 }
 
+
+// ---------------------------------------------------------------------------
+// K > 1024: the literal loop, one block of 1024 threads per segment.
+//
+// The reference's Pallas kernel takes any K. Above the cluster kernel's 1024
+// this form runs the loop as written (the first form's design, widened):
+// thread t owns candidates t, t + 1024, t + 2048, ... (ceil(K / 1024) of
+// them); each step is an argmax on the key (score descending, index ascending)
+// over the live candidates, first over a thread's own in index order, then
+// across the warp with shuffles and across the 32 warp winners in warp 0, two
+// barriers a step, then each thread updates its own candidates. A candidate's
+// state lives in its byte of the kept output (bit 0 live, bit 1 picked) and
+// only its owner touches it; the last pass leaves the picked bit. The boxes
+// and areas are in shared memory while they fit (20 bytes a candidate, up to
+// kWideSmemK candidates) and are read from global memory above that, the
+// pick's area computed again by the same ops. Bounded by the serial steps:
+// each costs one block-wide argmax over K / 1024 candidates a thread and two
+// barriers, as the first form's did.
+
+constexpr int kWideThreads = 1024;
+constexpr int kWideSmemK = 10240;  // 200 KB of boxes and areas
+
+__device__ __forceinline__ void wide_take(float& v, int& j, float ov, int oj) {
+  if (ov > v || (ov == v && oj < j)) {
+    v = ov;
+    j = oj;
+  }
+}
+
+__device__ __forceinline__ void wide_warp_argmax(float& v, int& j) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_down_sync(kFull, v, off);
+    const int oj = __shfl_down_sync(kFull, j, off);
+    wide_take(v, j, ov, oj);
+  }
+}
+
+__device__ __forceinline__ float box_area(float4 b) {
+  return __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+seq_wide_kernel(const float* __restrict__ boxes,
+                const float* __restrict__ scores, uint8_t* __restrict__ kept,
+                int32_t* __restrict__ picks, int k, int max_keep, float thr,
+                bool boxes_in_smem) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* sbox = reinterpret_cast<float4*>(smem);
+  float* sarea = reinterpret_cast<float*>(sbox + (boxes_in_smem ? k : 0));
+  __shared__ float wval[32];
+  __shared__ int widx[32];
+  __shared__ float pick_val;
+  __shared__ int pick_idx;
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const size_t seg = blockIdx.x;
+  const float* sc = scores + seg * (size_t)k;
+  const float4* bx = reinterpret_cast<const float4*>(boxes) + seg * (size_t)k;
+  uint8_t* state = kept + seg * (size_t)k;
+  int32_t* pout = picks + seg * (size_t)max_keep;
+
+  for (int i = t; i < k; i += kWideThreads) {
+    state[i] = sc[i] > 0.0f ? 1 : 0;
+    if (boxes_in_smem) {
+      const float4 b = bx[i];
+      sbox[i] = b;
+      sarea[i] = box_area(b);
+    }
+  }
+  int step = 0;
+  for (; step < max_keep; ++step) {
+    float v = -CUDART_INF_F;
+    int j = k;
+    for (int i = t; i < k; i += kWideThreads) {
+      if (state[i] & 1) wide_take(v, j, sc[i], i);
+    }
+    wide_warp_argmax(v, j);
+    if (lane == 0) {
+      wval[warp] = v;
+      widx[warp] = j;
+    }
+    __syncthreads();  // warp winners (and, at step 0, the shared boxes)
+    if (warp == 0) {
+      v = wval[lane];
+      j = widx[lane];
+      wide_warp_argmax(v, j);
+      if (lane == 0) {
+        pick_val = v;
+        pick_idx = j;
+      }
+    }
+    __syncthreads();  // the pick
+    const float m = pick_val;
+    const int p = pick_idx;
+    if (!(m > 0.f)) break;  // uniform: every thread read the same m
+    if (t == 0) pout[step] = p;
+    const float4 pb = boxes_in_smem ? sbox[p] : bx[p];
+    const float parea = boxes_in_smem ? sarea[p] : box_area(pb);
+    for (int i = t; i < k; i += kWideThreads) {
+      uint8_t st = state[i];
+      if (!(st & 1)) continue;
+      const float4 b = boxes_in_smem ? sbox[i] : bx[i];
+      const float area = boxes_in_smem ? sarea[i] : box_area(b);
+      const float ix1 = fmaxf(pb.x, b.x);
+      const float iy1 = fmaxf(pb.y, b.y);
+      const float ix2 = fminf(pb.z, b.z);
+      const float iy2 = fminf(pb.w, b.w);
+      const float inter = __fmul_rn(fmaxf(__fsub_rn(ix2, ix1), 0.f),
+                                    fmaxf(__fsub_rn(iy2, iy1), 0.f));
+      const float denom =
+          fmaxf(__fsub_rn(__fadd_rn(parea, area), inter), 1e-12f);
+      if (i == p) st |= 2;
+      if (!(__fdiv_rn(inter, denom) <= thr)) st &= 2;
+      state[i] = st;
+    }
+  }
+  for (int s = step + t; s < max_keep; s += kWideThreads) pout[s] = -1;
+  for (int i = t; i < k; i += kWideThreads) state[i] = state[i] >> 1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -350,6 +475,29 @@ int nms_seq_suppress(const void* boxes, const void* scores, void* kept,
                            static_cast<uint8_t*>(kept),
                            static_cast<int32_t*>(picks), k, max_keep, thr);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The same contract for any k >= 1 (the literal loop, one block of 1024
+// threads per segment): meant for k > 1024, which the entry point above
+// refuses.
+int nms_seq_suppress_wide(const void* boxes, const void* scores, void* kept,
+                          void* picks, int segments, int k, int max_keep,
+                          float thr, void* stream) {
+  if (segments < 0 || k < 1 || max_keep < 0)
+    return (int)cudaErrorInvalidValue;
+  if (segments == 0) return 0;
+  const bool in_smem = k <= kWideSmemK;
+  const size_t smem = in_smem ? (size_t)k * 20 : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      seq_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(kWideSmemK * 20));
+  if (err != cudaSuccess) return (int)err;
+  seq_wide_kernel<<<segments, kWideThreads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(boxes), static_cast<const float*>(scores),
+      static_cast<uint8_t*>(kept), static_cast<int32_t*>(picks), k, max_keep,
+      thr, in_smem);
   return (int)cudaGetLastError();
 }
 

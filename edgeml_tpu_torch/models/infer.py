@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..data.loader import iter_batches, list_images, resize_bilinear
+from ..device import exact_f32_cuda, resolve_device
 from ..ops.nms import nms_split_batch
 from .common import letterbox_batch
 from .faster_rcnn import FasterRCNN
@@ -35,29 +36,6 @@ from .yolov5 import YoloV5
 # Faster R-CNN)
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device to serve on: ``device`` if given, else the CUDA device.
-    Raises when CUDA is wanted and absent — never a silent CPU run."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass device='cpu' to run on the "
-                "CPU explicitly")
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           f"available")
-    return dev
-
-
-def exact_f32_cuda():
-    """Turn TF32 off for f32 convolutions and matmuls (cuDNN convolutions
-    default to TF32, which keeps about three decimal digits)."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def _nms_unmap(pred, meta, orig_hw, conf_thres, iou_thres,

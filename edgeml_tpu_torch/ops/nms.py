@@ -18,8 +18,11 @@ scores' own dtype, as a weakly typed scalar is in the reference.
 
 Suppression runs in ``ops/nms_fused.py``: a CUDA kernel for CUDA tensors
 (the monolithic one up to K = 1024 candidates, the blocked one up to 2048),
-its plain version for CPU tensors. The row gathers of the candidates run in
-``ops/gather.py`` the same way (a kernel for CUDA tensors).
+its plain version for CPU tensors. Above K = 2048 the dispatcher sends the
+candidates, on any device, to the plain global fixpoint
+(``greedy_keep_mask_global``), as the reference sends them to its XLA
+fixpoint. The row gathers of the candidates run in ``ops/gather.py`` the
+same way (a kernel for CUDA tensors).
 
 ``suppress_mask`` (greedy survivors of unsorted candidates, capped at
 ``max_keep`` picks) and ``nms_rows`` (class-aware NMS over pre-scored
@@ -34,7 +37,7 @@ import torch
 
 from .gather import gather_rows
 from .nms_fused import (
-    greedy_keep_mask_blocked_plain, greedy_keep_mask_fused,
+    MAX_K_BLOCKED, greedy_keep_mask_blocked_plain, greedy_keep_mask_fused,
     greedy_keep_mask_plain,
 )
 
@@ -96,13 +99,31 @@ def _compact(cand_boxes, top_scores, cls_idx, kept, max_det):
     return torch.where(valid[..., None], out, 0.0), valid
 
 
+def greedy_keep_mask_global(boxes: torch.Tensor, scores: torch.Tensor,
+                            iou_thres: float) -> torch.Tensor:
+    """The route of K > MAX_K_BLOCKED: the plain global fixpoint
+    (``greedy_keep_mask_plain``) on the tensors' own device, where the
+    reference takes its XLA fixpoint. Counts its calls in
+    ``greedy_keep_mask_global.launches``, as the kernels count theirs."""
+    kept = greedy_keep_mask_plain(boxes, scores, iou_thres)
+    greedy_keep_mask_global.launches += 1
+    return kept
+
+
+greedy_keep_mask_global.launches = 0
+
+
 def _emit_batch(cand_boxes, top_scores, cls_idx, iou_thres, max_det):
-    """Suppression + compaction of (B, K) candidates. The suppressor is a
-    CUDA kernel for CUDA tensors (K <= 1024 the monolithic one, K <= 2048
-    the blocked one; larger K raises) and its plain version for CPU
-    tensors."""
+    """Suppression + compaction of (B, K) candidates. The route is chosen by
+    K alone: up to MAX_K_BLOCKED the suppressor kernels for CUDA tensors (K
+    <= 1024 the monolithic one, K <= 2048 the blocked one) and their plain
+    versions for CPU tensors; above it the global fixpoint on any
+    device."""
     off = cand_boxes + cls_idx[..., None] * MAX_WH
-    kept = greedy_keep_mask_fused(off, top_scores, float(iou_thres))
+    if top_scores.shape[1] > MAX_K_BLOCKED:
+        kept = greedy_keep_mask_global(off, top_scores, float(iou_thres))
+    else:
+        kept = greedy_keep_mask_fused(off, top_scores, float(iou_thres))
     return _compact(cand_boxes, top_scores, cls_idx, kept, max_det)
 
 

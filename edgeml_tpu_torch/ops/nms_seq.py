@@ -12,12 +12,14 @@ independent segments (Faster R-CNN: one per image and FPN level): up to
 with area = (x2 - x1) * (y2 - y1) as the reference builds it. Candidates of
 score <= 0 are never live.
 
-``suppress_mask_seq`` is the entry point. For a CUDA tensor it launches the
-kernel of ``csrc/nms_seq.cu`` (``suppress_mask_seq_cuda``: a cluster of 4
-blocks per segment, K <= 1024; a larger K raises), or raises; it takes the
-plain version ``suppress_mask_seq_plain`` (the same loop in PyTorch ops,
-batched over segments, the same IoU arithmetic op for op) only for a tensor
-on the CPU. The two are bit-identical. The kernel reaches the loop's answer
+``suppress_mask_seq`` is the entry point. For a CUDA tensor it launches a
+kernel of ``csrc/nms_seq.cu``, chosen by K, or raises:
+``suppress_mask_seq_cuda`` (a cluster of 4 blocks per segment, K <= 1024)
+or, above that, ``suppress_mask_seq_wide_cuda`` (the literal loop, one block
+of 1024 threads per segment, any K). It takes the plain version
+``suppress_mask_seq_plain`` (the same loop in PyTorch ops, batched over
+segments, the same IoU arithmetic op for op) only for a tensor on the CPU.
+All three are bit-identical. The cluster kernel reaches the loop's answer
 in its sorted form: the loop picks in strictly decreasing (score, -index)
 order, so its picks are the greedy keep mask of the live candidates sorted
 by that key, with a pick that does not remove itself (zero or negative
@@ -63,6 +65,8 @@ def _load():
             ctypes.c_float,  # iou threshold
             ctypes.c_void_p,  # cudaStream_t
         ]
+        lib.nms_seq_suppress_wide.restype = ctypes.c_int
+        lib.nms_seq_suppress_wide.argtypes = fn.argtypes
         lib.nms_seq_error_string.restype = ctypes.c_char_p
         lib.nms_seq_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -112,33 +116,31 @@ def suppress_mask_seq_plain(boxes: torch.Tensor, scores: torch.Tensor,
     return kept, picks
 
 
-def suppress_mask_seq_cuda(boxes: torch.Tensor, scores: torch.Tensor,
-                           iou_thres: float, max_keep: int):
-    """Launch the kernel (``csrc/nms_seq.cu``) on the current stream: boxes
-    (S, K, 4) f32 contiguous on a CUDA device, scores (S, K) f32 contiguous
-    on the same device, K <= MAX_K. Counts its launches in
-    ``suppress_mask_seq_cuda.launches``."""
+def _launch(entry: str, counter, max_k, boxes: torch.Tensor,
+            scores: torch.Tensor, iou_thres: float, max_keep: int):
+    """Check the inputs, launch ``entry`` of ``csrc/nms_seq.cu`` on the
+    current stream, raise on a refused launch, count it on ``counter``."""
+    fn = counter.__name__
     if boxes.device.type != "cuda" or scores.device != boxes.device:
         raise ValueError(
-            f"suppress_mask_seq_cuda: tensors must share one CUDA device "
+            f"{fn}: tensors must share one CUDA device "
             f"(boxes on {boxes.device}, scores on {scores.device})")
     if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
         raise TypeError(
-            f"suppress_mask_seq_cuda: want f32 boxes and scores, got "
+            f"{fn}: want f32 boxes and scores, got "
             f"{boxes.dtype} and {scores.dtype}")
     if boxes.dim() != 3 or boxes.shape[2] != 4 \
             or tuple(scores.shape) != tuple(boxes.shape[:2]):
         raise ValueError(
-            f"suppress_mask_seq_cuda: want boxes (S, K, 4) and scores "
+            f"{fn}: want boxes (S, K, 4) and scores "
             f"(S, K), got {tuple(boxes.shape)} and {tuple(scores.shape)}")
     if not (boxes.is_contiguous() and scores.is_contiguous()):
-        raise ValueError("suppress_mask_seq_cuda: inputs must be contiguous")
+        raise ValueError(f"{fn}: inputs must be contiguous")
     s_, k, _ = boxes.shape
-    if not 1 <= k <= MAX_K:
-        raise ValueError(
-            f"suppress_mask_seq_cuda: K = {k} outside [1, {MAX_K}]")
+    if k < 1 or (max_k is not None and k > max_k):
+        raise ValueError(f"{fn}: K = {k} outside [1, {max_k}]")
     if max_keep < 0:
-        raise ValueError(f"suppress_mask_seq_cuda: max_keep = {max_keep}")
+        raise ValueError(f"{fn}: max_keep = {max_keep}")
     kept = torch.empty((s_, k), dtype=torch.bool, device=boxes.device)
     picks = torch.empty((s_, max_keep), dtype=torch.int32,
                         device=boxes.device)
@@ -147,18 +149,41 @@ def suppress_mask_seq_cuda(boxes: torch.Tensor, scores: torch.Tensor,
     lib = _load()
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     with torch.cuda.device(boxes.device):
-        rc = lib.nms_seq_suppress(
+        rc = getattr(lib, entry)(
             boxes.data_ptr(), scores.data_ptr(), kept.data_ptr(),
             picks.data_ptr(), s_, k, int(max_keep), float(iou_thres), stream)
     if rc != 0:
         msg = lib.nms_seq_error_string(rc).decode()
         raise RuntimeError(
-            f"nms_seq kernel launch failed: CUDA error {rc} ({msg})")
-    suppress_mask_seq_cuda.launches += 1
+            f"{entry} kernel launch failed: CUDA error {rc} ({msg})")
+    counter.launches += 1
     return kept, picks
 
 
+def suppress_mask_seq_cuda(boxes: torch.Tensor, scores: torch.Tensor,
+                           iou_thres: float, max_keep: int):
+    """Launch the cluster kernel (``csrc/nms_seq.cu``) on the current stream:
+    boxes (S, K, 4) f32 contiguous on a CUDA device, scores (S, K) f32
+    contiguous on the same device, K <= MAX_K. Counts its launches in
+    ``suppress_mask_seq_cuda.launches``."""
+    return _launch("nms_seq_suppress", suppress_mask_seq_cuda, MAX_K, boxes,
+                   scores, iou_thres, max_keep)
+
+
 suppress_mask_seq_cuda.launches = 0
+
+
+def suppress_mask_seq_wide_cuda(boxes: torch.Tensor, scores: torch.Tensor,
+                                iou_thres: float, max_keep: int):
+    """Launch the literal-loop kernel (``csrc/nms_seq.cu`` seq_wide_kernel,
+    one block of 1024 threads per segment) for any K; arguments as
+    ``suppress_mask_seq_cuda``. The entry point takes it for K > MAX_K.
+    Counts its launches in ``suppress_mask_seq_wide_cuda.launches``."""
+    return _launch("nms_seq_suppress_wide", suppress_mask_seq_wide_cuda,
+                   None, boxes, scores, iou_thres, max_keep)
+
+
+suppress_mask_seq_wide_cuda.launches = 0
 
 
 def suppress_mask_seq(boxes: torch.Tensor, scores: torch.Tensor,
@@ -171,22 +196,19 @@ def suppress_mask_seq(boxes: torch.Tensor, scores: torch.Tensor,
     :param iou_thres: strictly greater IoU suppresses; compared in f32.
     :param max_keep: at most this many picks per segment.
     :return: (kept (S, K) bool, picks (S, max_keep) int32 in pick order, -1
-        after the last pick): the CUDA kernel for CUDA tensors (K <= MAX_K,
-        else ValueError), the plain version for CPU tensors, identical
-        either way.
+        after the last pick): a CUDA kernel for CUDA tensors (the cluster
+        kernel for K <= MAX_K, the literal loop above), the plain version
+        for CPU tensors, identical either way.
     """
     if boxes.device.type == "cpu":
         return suppress_mask_seq_plain(boxes, scores, iou_thres, max_keep)
     if boxes.device.type != "cuda":
         raise ValueError(f"suppress_mask_seq: unsupported device "
                          f"{boxes.device}")
-    if boxes.shape[1] > MAX_K:
-        raise ValueError(
-            f"suppress_mask_seq: K = {boxes.shape[1]} above {MAX_K}, the "
-            f"largest segment of the sequential suppressor kernel")
-    return suppress_mask_seq_cuda(boxes.to(torch.float32).contiguous(),
-                                  scores.to(torch.float32).contiguous(),
-                                  iou_thres, max_keep)
+    launch = suppress_mask_seq_cuda if boxes.shape[1] <= MAX_K \
+        else suppress_mask_seq_wide_cuda
+    return launch(boxes.to(torch.float32).contiguous(),
+                  scores.to(torch.float32).contiguous(), iou_thres, max_keep)
 
 
 def _score_row(scores: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,23 @@
 """The port on a CUDA device: the suppressor kernels (monolithic, K <= 1024;
-blocked, K <= 2048; sequential, per segment K <= 1024) and the row-gather
-kernel against their plain versions, and the serving slices (YOLOv5,
-SSDLite, Faster R-CNN) through them.
+blocked, K <= 2048; sequential, the cluster kernel up to K = 1024 and the
+literal loop above) and the row-gather kernel against their plain versions,
+the batched suppressor's K > 2048 route, the serving slices (YOLOv5,
+SSDLite, Faster R-CNN) through them, every family's heads and files (and
+Faster R-CNN's RoIAlign and box head) against the CPU's, and the reward path
+(the mAP core, ORIE rewards, the reward and test CLIs) against the CPU's.
 
 Marked ``gpu``; the ``cuda`` fixture skips every test where no CUDA device is
 present (decided when the test runs, never at import). Run on the card with
 
     python -m pytest tests/test_torch_port_gpu.py -m gpu -q
 
-Tolerance: none — kernel and plain masks and the dets of the kernel and plain
-tails are compared bit for bit.
+Tolerance: none for the kernels — kernel and plain masks and the dets of the
+kernel and plain tails are compared bit for bit. Card against CPU: heads 1e-4
+of each output's largest value (Faster R-CNN's RPN 3e-4), files as
+``chip_smoke.py`` pairs them, each mAP 3e-5, ORIE 6e-5 (E + 1).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -27,6 +34,7 @@ from edgeml_tpu_torch.ops.nms_fused import (
 )
 from edgeml_tpu_torch.ops.nms_seq import (
     suppress_mask_seq, suppress_mask_seq_cuda, suppress_mask_seq_plain,
+    suppress_mask_seq_wide_cuda,
 )
 
 pytestmark = pytest.mark.gpu
@@ -435,11 +443,89 @@ def test_seq_kernel_edge_cases(cuda, case, s):
 
 
 def test_seq_kernel_rejects_large_k(cuda):
+    """K = 1025, above the cluster kernel's 1024: the entry point launches
+    the literal-loop kernel instead (the cluster kernel's wrapper still
+    refuses it), and its kept and picks equal the plain loop's."""
     boxes, scores = seq_candidates(0, 2, 1025, "sparse")
+    boxes, scores = boxes.to(cuda), scores.to(cuda)
     before = suppress_mask_seq_cuda.launches
-    with pytest.raises(ValueError, match="1025"):
-        suppress_mask_seq(boxes.to(cuda), scores.to(cuda), 0.7, 10)
+    before_wide = suppress_mask_seq_wide_cuda.launches
+    kept, picks = suppress_mask_seq(boxes, scores, 0.7, 10)
+    torch.cuda.synchronize()
     assert suppress_mask_seq_cuda.launches == before
+    assert suppress_mask_seq_wide_cuda.launches == before_wide + 1
+    want_kept, want_picks = suppress_mask_seq_plain(boxes, scores, 0.7, 10)
+    assert torch.equal(kept, want_kept) and torch.equal(picks, want_picks)
+    with pytest.raises(ValueError, match="1025"):
+        suppress_mask_seq_cuda(boxes, scores, 0.7, 10)
+
+
+@pytest.mark.parametrize("k,segs", [(1025, 16), (2000, 8), (4096, 4),
+                                    (11000, 2)])
+@pytest.mark.parametrize("regime", ["dense", "sparse", "ties"])
+@pytest.mark.parametrize("thr,max_keep", [(0.7, None), (0.5, 64),
+                                          (float("nan"), 5), (1.0, 20)])
+def test_seq_wide_kernel_equals_plain(cuda, k, segs, regime, thr, max_keep):
+    """K > 1024 through the literal-loop kernel (boxes in shared memory up
+    to 10,240 candidates, in global memory above), bit-equal to the plain
+    loop on the card and on the CPU."""
+    boxes, scores = seq_candidates(k + segs, segs, k, regime)
+    boxes, scores = boxes.to(cuda), scores.to(cuda)
+    mk = k if max_keep is None else max_keep
+    before = suppress_mask_seq_wide_cuda.launches
+    kept, picks = suppress_mask_seq(boxes, scores, thr, mk)
+    torch.cuda.synchronize()
+    assert suppress_mask_seq_wide_cuda.launches == before + 1
+    want_kept, want_picks = suppress_mask_seq_plain(boxes, scores, thr, mk)
+    assert torch.equal(kept, want_kept) and torch.equal(picks, want_picks)
+    cpu_kept, cpu_picks = suppress_mask_seq_plain(boxes.cpu(), scores.cpu(),
+                                                  thr, mk)
+    assert torch.equal(kept.cpu(), cpu_kept)
+    assert torch.equal(picks.cpu(), cpu_picks)
+
+
+@pytest.mark.parametrize("call", ["split", "rows"])
+def test_large_max_cand_route_on_cuda(cuda, call):
+    """max_cand 4096: the dispatcher takes the global fixpoint on the card
+    (chosen by K), no suppressor kernel launches, and the dets equal the
+    CPU's."""
+    rng = np.random.default_rng(4096)
+    b, n = 2, 5000
+    if call == "split":
+        obj = torch.from_numpy(rng.random((b, n)).astype(np.float32))
+        xywh = torch.from_numpy(np.stack(
+            [rng.uniform(50, 600, (b, n)), rng.uniform(50, 600, (b, n)),
+             rng.uniform(5, 80, (b, n)), rng.uniform(5, 80, (b, n))],
+            -1).astype(np.float32))
+        cls = torch.from_numpy((rng.random((b, n, 4)) ** 4).astype(
+            np.float32))
+        args = (obj, xywh, cls)
+
+        def fn(*a):
+            return tnms.nms_split_batch(*a, conf_thres=1e-3, iou_thres=0.6,
+                                        max_cand=4096)
+    else:
+        c = rng.uniform(20, 500, (b, n, 2))
+        wh = rng.uniform(10, 120, (b, n, 2))
+        boxes = torch.from_numpy(np.concatenate(
+            [c - wh / 2, c + wh / 2], -1).astype(np.float32))
+        scores = torch.from_numpy(rng.random((b, n)).astype(np.float32))
+        ids = torch.from_numpy(rng.integers(0, 6, (b, n)).astype(np.float32))
+        args = (boxes, scores, ids)
+
+        def fn(*a):
+            return tnms.nms_rows(*a, iou_thres=0.5, max_cand=4096)
+    before = (_counts(), tnms.greedy_keep_mask_global.launches)
+    d, v = fn(*[a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    assert _counts()[:3] == before[0][:3]
+    assert tnms.greedy_keep_mask_global.launches == before[1] + 1
+    d_cpu, v_cpu = fn(*args)
+    assert torch.equal(d.cpu(), d_cpu) and torch.equal(v.cpu(), v_cpu)
+    assert int(v.sum()) > 50
+    with pytest.raises(ValueError, match="4096"):
+        greedy_keep_mask_fused(torch.zeros(1, 4096, 4, device=cuda),
+                               torch.ones(1, 4096, device=cuda), 0.6)
 
 
 @pytest.mark.parametrize("src_dt,scale_dt", [
@@ -586,3 +672,253 @@ def test_faster_rcnn_run_detection_on_cuda(cuda, tmp_path):
         assert a.shape[1] == 6 and a.shape[0] > 0
         assert np.all((a[:, 1:5] >= 0) & (a[:, 1:5] <= 1))
         assert np.all((a[:, 0] >= 0) & (a[:, 0] < 5))
+
+
+def _reward_dataset(seed, n_img, t=1, n_cls=12):
+    """set_data-format triples with matching-consistent TP flags."""
+    rng = np.random.default_rng(seed)
+    weak, strong, labels = [], [], []
+    for _ in range(n_img):
+        lab = rng.integers(0, n_cls, int(rng.integers(0, 6)))
+        labels.append(lab)
+        for out, skill in ((weak, 0.35), (strong, 0.6)):
+            n = int(rng.integers(0, 12))
+            cls = rng.integers(0, n_cls, n)
+            tp = np.zeros((n, t), bool)
+            for c in np.unique(cls):
+                rows = np.nonzero(cls == c)[0]
+                cap = int((lab == c).sum())
+                for ti in range(t):
+                    hot = rows[rng.random(rows.size) < skill]
+                    tp[hot[:cap], ti] = True
+            out.append((tp, rng.random(n), cls))
+    return weak, strong, labels
+
+
+@pytest.mark.parametrize("t", [1, 10])
+def test_map_core_card_equals_cpu(cuda, t):
+    """map_from_masks, orie_map_pair and dataset_map on the card within
+    3e-5 of the CPU path on the same masks; a draw's value does not depend
+    on its batch."""
+    from edgeml_tpu_torch.ops import map_kernel as tmk
+
+    weak, strong, labels = _reward_dataset(t, 300, t)
+    n = len(labels)
+    gpool = tmk.build_pool(weak, strong, labels, device=cuda)
+    cpool = tmk.build_pool(weak, strong, labels)
+    rng = np.random.default_rng(t)
+    w, s = (torch.from_numpy(rng.random((40, n)) < 0.5) for _ in range(2))
+    lab = w | s
+    got = tmk.map_from_masks(gpool, w.to(cuda), s.to(cuda), lab.to(cuda))
+    want = tmk.map_from_masks(cpool, w, s, lab)
+    assert float((got.cpu() - want).abs().max()) <= 3e-5
+    target = torch.arange(40)
+    gw, gs = tmk.orie_map_pair(gpool, w.to(cuda), target.to(cuda))
+    cw, cs_ = tmk.orie_map_pair(cpool, w, target)
+    assert float((gw.cpu() - cw).abs().max()) <= 3e-5
+    assert float((gs.cpu() - cs_).abs().max()) <= 3e-5
+    hw, hs = tmk.orie_map_pair(gpool, w[7:9].to(cuda), target[7:9].to(cuda))
+    assert torch.equal(hw, gw[7:9]) and torch.equal(hs, gs[7:9])
+    off = torch.from_numpy(rng.random((11, n)) < 0.5)
+    assert float((tmk.dataset_map(gpool, off.to(cuda)).cpu()
+                  - tmk.dataset_map(cpool, off)).abs().max()) <= 3e-5
+
+
+@pytest.mark.parametrize("e", ["all", "some"])
+def test_orie_rewards_card_equals_cpu(cuda, e):
+    """E = N - 1 rewards (the draw does not matter) on the card within
+    6e-5 N of the CPU's; at E = 50 the same draws on both devices give
+    rewards within 6e-5 (E + 1); batch-independent on the card."""
+    from edgeml_tpu_torch.reward import orie as torie
+
+    weak, strong, labels = _reward_dataset(9, 200)
+    n = len(labels)
+    ens = n - 1 if e == "all" else 50
+    got = torie.orie_rewards(weak, strong, labels, ens, seed=5, device=cuda)
+    want = torie.orie_rewards(weak, strong, labels, ens, seed=5,
+                              device="cpu")
+    assert got.dtype == np.float32 and np.any(got != 0)
+    np.testing.assert_allclose(got, want, atol=6e-5 * (ens + 1), rtol=0)
+    np.testing.assert_array_equal(got, torie.orie_rewards(
+        weak, strong, labels, ens, seed=5, batch=17, device=cuda))
+    m = torie.ensemble_masks(5, torch.arange(n, device=cuda), n, ens)
+    assert bool((m.sum(dim=1) == ens).all()) and not bool(m.diag().any())
+    assert torch.equal(m.cpu(), torie.ensemble_masks(5, torch.arange(n), n,
+                                                     ens))
+
+
+def test_reward_and_test_clis_on_cuda(cuda, tmp_path):
+    """The reward CLI (orie, dcsb) and the test CLI on the card by default:
+    the JAX CLIs' files, dcsb equal to a --device cpu run, ORIE within
+    tolerance of it, test_map.npy of shape (n, 11)."""
+    from edgeml_tpu_torch.cli import reward as cli_reward
+    from edgeml_tpu_torch.cli import test as cli_test
+
+    rng = np.random.default_rng(3)
+    dirs = [str(tmp_path / d) for d in ("weak", "strong", "labels")]
+    for d in dirs:
+        (tmp_path / os.path.basename(d)).mkdir()
+    n_img = 60
+    for i in range(n_img):
+        lab = np.concatenate([rng.integers(0, 5, (3, 1)),
+                              rng.uniform(0.2, 0.8, (3, 2)),
+                              rng.uniform(0.05, 0.3, (3, 2))], 1)
+        with open(os.path.join(dirs[2], f"im{i:03d}.txt"), "w") as f:
+            f.writelines(f"{int(r[0])} {r[1]:.6f} {r[2]:.6f} {r[3]:.6f} "
+                         f"{r[4]:.6f}\n" for r in lab)
+        for d in dirs[:2]:
+            rows = lab[rng.integers(0, 3, 5)].copy()
+            rows[:, 1:] += rng.normal(0, 0.02, (5, 4))
+            conf = rng.uniform(0.1, 1.0, 5)
+            with open(os.path.join(d, f"im{i:03d}.txt"), "w") as f:
+                f.writelines(f"{int(r[0])} {r[1]:.6f} {r[2]:.6f} {r[3]:.6f} "
+                             f"{r[4]:.6f} {c:.6f}\n" for r, c in zip(rows,
+                                                                     conf))
+    out, out_cpu = str(tmp_path / "out"), str(tmp_path / "out_cpu")
+    for method in ("orie", "dcsb"):
+        for o, extra in ((out, []), (out_cpu, ["--device", "cpu"])):
+            cli_reward.main(cli_reward.getargs(
+                [*dirs, o, "--method", method, "--num-ensemble", "20",
+                 *extra]))
+    for name, dt in (("orie20.npz", np.float32), ("dcsb.npz", np.int64)):
+        got = np.load(os.path.join(out, name))
+        want = np.load(os.path.join(out_cpu, name))
+        assert sorted(got.files) == ["reward", "time"]
+        assert got["reward"].dtype == dt and got["reward"].shape == (n_img,)
+        if dt == np.int64:
+            np.testing.assert_array_equal(got["reward"], want["reward"])
+        else:
+            np.testing.assert_allclose(got["reward"], want["reward"],
+                                       atol=6e-5 * 21, rtol=0)
+    fold = rng.permutation(np.arange(n_img) % 3)
+    split = np.stack([fold == f for f in range(3)])
+    np.save(tmp_path / "split.npy", split)
+    est = tmp_path / "est"
+    est.mkdir()
+    for k, val in enumerate(split):
+        np.savez(est / f"estimate{k + 1}.npz",
+                 train_est=rng.normal(0, 1, int((~val).sum())),
+                 val_est=rng.normal(0, 1, int(val.sum())))
+    for o, extra in ((out, []), (out_cpu, ["--device", "cpu"])):
+        cli_test.main(cli_test.getargs([*dirs, str(tmp_path / "split.npy"),
+                                        o, "--estimates", str(est), *extra]))
+    got = np.load(os.path.join(out, "test_map.npy"))
+    assert got.shape == (1, 11)
+    np.testing.assert_allclose(got, np.load(os.path.join(out_cpu,
+                                                         "test_map.npy")),
+                               atol=3e-5, rtol=0)
+
+
+def _heads_rel_err(got, ref):
+    """The largest error of each output over its largest value."""
+    return max(float((a.float().cpu() - b.float()).abs().max())
+               / max(float(b.float().abs().max()), 1e-30)
+               for a, b in zip(got, ref))
+
+
+def _family(name):
+    from edgeml_tpu_torch.models.retinanet import RetinaNet
+    from edgeml_tpu_torch.models.yolov5 import YoloV5
+
+    g = torch.Generator().manual_seed(0)
+    if name == "yolov5":
+        net = YoloV5(num_classes=8, img_size=128, generator=g)
+        return net, 128, (lambda m, x: m.predict(x)), {}
+    if name == "ssd":
+        # full width, BatchNorm statistics and spread class biases from
+        # chip_smoke.py's seeded construction: a small random SSDLite gives
+        # thousands of near-equal scores, whose max_det cut no
+        # rounding-level check can hold
+        import chip_smoke as cs
+        from edgeml_tpu_torch.data.coco_labelmap import coco_to_yolov5
+
+        calib = torch.from_numpy(np.random.default_rng(2).normal(
+            0, 1, (4, 320, 320, 3)).astype(np.float32))
+        net = cs.seeded_ssdlite(3, calib, torch.device("cpu"))
+        return net, 320, (lambda m, x: m(x)), {"class_map": coco_to_yolov5}
+    if name == "retinanet":
+        net = RetinaNet(num_classes=6, image_size=128, generator=g)
+        return net, 128, (lambda m, x: m(x)), {
+            "class_map": {c: c - 1 for c in range(1, 6)}}
+    net = tfr.FasterRCNN(num_classes=6, image_size=128, generator=g)
+    return net, 128, (lambda m, x: [t for lv in m.run_rpn(m.features(x))
+                                    for t in lv]), {
+        "class_map": {c: c - 1 for c in range(1, 6)}}
+
+
+@pytest.mark.parametrize("name", ["yolov5", "ssd", "retinanet",
+                                  "faster_rcnn"])
+def test_heads_and_files_card_equal_cpu(cuda, tmp_path, name):
+    """The f32 heads on the card within 1e-4 of each output's largest value
+    of the CPU's (Faster R-CNN's RPN: the card's 3e-4); run_detection's
+    files on the card paired row for row with the CPU's within
+    chip_smoke.py's file tolerances (conf 1e-4, boxes 0.1 px, at most 5% of
+    rows unpaired)."""
+    import copy
+
+    import chip_smoke as cs
+    from edgeml_tpu_torch.models.infer import run_detection
+
+    net, size, fwd, kw = _family(name)
+    net = net.eval()
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1, (2, size, size, 3)).astype(np.float32))
+    cpu_net = copy.deepcopy(net)
+    with torch.no_grad():
+        ref = fwd(cpu_net, x)
+        got = fwd(net.to(cuda), x.to(cuda))
+    tol = cs.FRCNN_RPN_CARD_TOL if name == "faster_rcnn" \
+        else cs.CPU_SUITE_TOL
+    assert _heads_rel_err(got, ref) < tol
+    img_dir = tmp_path / "imgs"
+    if name == "ssd":  # chip_smoke.py's images: smooth content
+        shapes = cs.make_images(str(img_dir), seed=5, n=3)
+    else:
+        img_dir.mkdir()
+        rng = np.random.default_rng(5)
+        shapes = []
+        for i in range(3):
+            h, w = 120, 90 + 10 * i
+            np.save(img_dir / f"img{i:04d}.npy",
+                    (rng.random((h, w, 3)) * 255).astype(np.uint8))
+            shapes.append((h, w))
+    args = dict(batch_size=2, conf_thres=1e-3, iou_thres=0.5, **kw)
+    if name == "yolov5":
+        args["img_size"] = 128
+    run_detection(net, str(img_dir), str(tmp_path / "card"), **args)
+    run_detection(cpu_net, str(img_dir), str(tmp_path / "cpu"),
+                  device="cpu", **args)
+    rows = unpaired = 0
+    for i, hw in enumerate(shapes):
+        a = np.load(tmp_path / "card" / f"img{i:04d}.npy")
+        b = np.load(tmp_path / "cpu" / f"img{i:04d}.npy")
+        pairs, conf_err, box_err = cs.pair_rows(a, b, hw)
+        assert conf_err <= cs.FILE_CONF_TOL and box_err <= cs.FILE_BOX_TOL_PX
+        rows += max(len(a), len(b))
+        unpaired += max(len(a), len(b)) - pairs
+    assert rows > 0 and unpaired <= cs.FILE_UNPAIRED_TOL * rows
+
+
+def test_faster_rcnn_second_stage_card_equals_cpu(cuda):
+    """RoIAlign (strict f32 within 1e-4 of its largest value; the bf16
+    pyramid within bf16 rounding, 4e-2) and the box head (1e-4) on the card
+    against the CPU on the same features and proposals."""
+    import copy
+
+    net = tfr.FasterRCNN(num_classes=6, image_size=128,
+                         generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (1, 128, 128, 3)).astype(np.float32))
+    with torch.no_grad():
+        feats = net.features(x)
+        boxes, _ = net.proposals(*net.run_rpn(feats))
+        pooled = net.roi_align(feats[:4], boxes)
+        head = net.box_head(pooled)
+        card = copy.deepcopy(net).to(cuda)
+        feats_g = [f.to(cuda) for f in feats[:4]]
+        assert _heads_rel_err([card.roi_align(feats_g, boxes.to(cuda))],
+                              [pooled]) < 1e-4
+        p16 = card.roi_align(feats_g, boxes.to(cuda), tfr.ROI_PYR)
+        assert float((p16.float().cpu() - net.roi_align(
+            feats[:4], boxes, tfr.ROI_PYR).float()).abs().max()) <= 4e-2
+        assert _heads_rel_err(card.box_head(pooled.to(cuda)), head) < 1e-4

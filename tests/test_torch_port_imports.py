@@ -31,7 +31,9 @@ def test_import_pulls_in_no_jax():
     for m in ("ops.nms_fused", "ops.nms_seq", "ops.gather",
               "models.mobilenetv3", "models.ssdlite", "models.ssd_loss",
               "models.resnet", "models.retinanet", "models.faster_rcnn",
-              "data.coco_labelmap"):
+              "data.coco_labelmap", "ops.metrics", "ops.map_kernel",
+              "data.io", "data.fastio", "reward.orie", "eval",
+              "cli.reward", "cli.test"):
         assert "edgeml_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

@@ -67,10 +67,13 @@ Imports torch, numpy, the standard library and ``edgeml_tpu_torch`` only.
 Scratch files go to ``.smoke_tmp/`` beside this script and are removed.
 """
 
+import contextlib
 import copy
+import io
 import json
 import math
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -642,6 +645,7 @@ def run_detection_on(net, img_dir, out_dir, device, **kw):
 def main(kernels_only=False):
     import torch
 
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA card")
@@ -663,7 +667,8 @@ def main(kernels_only=False):
 
     # ---- phase 1: device and build (one nvcc per source, in parallel) -----
     t0 = time.perf_counter()
-    _build.build(["nms_fused", "nms_blocked", "nms_seq", "gather_rows"])
+    _build.build(["nms_fused", "nms_blocked", "nms_seq", "gather_rows",
+                  "sgd_scan"])
     build_s = time.perf_counter() - t0
     line("device", name=repr(kind), count=count, smi=repr(smi),
          torch=torch.__version__, cuda=torch.version.cuda,
@@ -720,11 +725,14 @@ def main(kernels_only=False):
         shapes = make_images(img_dir, seed=0)
         records = [serving_phases(dev, tmp, img_dir, shapes),
                    ssd_phases(dev, tmp, img_dir, shapes)]
+        resize_phase(dev, tmp, img_dir)
         retina_phases(dev, tmp, img_dir, shapes)
         records += frcnn_phases(dev, tmp, img_dir, shapes, gather_record)
         reward_phases(dev, tmp)
+        records.append(estimator_phases(dev, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    line("wall", script_s=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -900,9 +908,10 @@ def _wrappers():
         greedy_keep_mask_blocked_cuda, greedy_keep_mask_cuda,
     )
     from edgeml_tpu_torch.ops.nms_seq import suppress_mask_seq_cuda
+    from edgeml_tpu_torch.ops.sgd import sgd_fit_cuda
 
     return (greedy_keep_mask_cuda, greedy_keep_mask_blocked_cuda,
-            suppress_mask_seq_cuda, gather_rows_cuda)
+            suppress_mask_seq_cuda, gather_rows_cuda, sgd_fit_cuda)
 
 
 def reset_counts():
@@ -912,8 +921,13 @@ def reset_counts():
 
 def counts():
     """(monolithic, blocked, sequential, gather) kernel launches since
-    reset_counts()."""
-    return tuple(w.launches for w in _wrappers())
+    reset_counts(): the detection kernels."""
+    return tuple(w.launches for w in _wrappers()[:4])
+
+
+def sgd_launches():
+    """SGD scan kernel launches since reset_counts()."""
+    return _wrappers()[4].launches
 
 
 def traced(tag, run):
@@ -2089,17 +2103,17 @@ ORIE_OPS = 30  # f32 operations per (C, T, K) element of one evaluation
 ORIE_CPU_DRAWS = 128  # E = N - 1 rewards, card against CPU, on this many
 
 
-def make_workload(rng, n_img):
+def make_workload(rng, n_img, n_cls=ORIE_CLS):
     """set_data-format triples with matching-consistent TP flags (a copy of
-    ``bench.py make_workload``)."""
+    ``bench.py make_workload``, with the class count as a parameter)."""
     weak, strong, labels = [], [], []
     for _ in range(n_img):
         m = rng.integers(max(ORIE_LABELS // 2, 1), ORIE_LABELS * 2 + 1)
-        lab = rng.integers(0, ORIE_CLS, size=m)
+        lab = rng.integers(0, n_cls, size=m)
         labels.append(lab)
         for out, skill in ((weak, 0.35), (strong, 0.6)):
             n = rng.integers(max(ORIE_DETS // 2, 1), ORIE_DETS * 2 + 1)
-            cls = rng.integers(0, ORIE_CLS, size=n)
+            cls = rng.integers(0, n_cls, size=n)
             tp = rng.random((n, 1)) < skill
             for c in np.unique(cls):
                 cap = int(np.sum(lab == c))
@@ -2394,6 +2408,484 @@ def reward_cli_phase(dev, tmp, weak, strong, labels):
          dcsb_equal_cpu=True, keys_dtypes_ok=True,
          test_map_shape=repr(tm.shape))
 
+
+
+# ---- the host resize: the native taps against the NumPy evaluation -------
+RESIZE_TOL = 2e-6  # the two evaluations differ only in summation order
+
+
+def resize_phase(dev, tmp, img_dir):
+    """[resize]: the first 64 images letterboxed for YOLOv5n (640) and
+    resized for SSDLite (320 square) through the native resampler (what
+    serving runs) and through the NumPy tap evaluation, on one thread,
+    the native result the same on a second run and within 2e-6 of NumPy's;
+    then YOLOv5n and SSDLite f32 serving of the 256 images with each
+    evaluation, in the order NumPy, native, native, NumPy."""
+    import torch
+
+    from edgeml_tpu_torch.data import loader
+    from edgeml_tpu_torch.data.coco_labelmap import coco_to_yolov5
+    from edgeml_tpu_torch.models.common import letterbox_batch
+    from edgeml_tpu_torch.models.infer import run_detection, square_batch
+
+    names = sorted(os.listdir(img_dir))
+    imgs = [loader.decode_image(os.path.join(img_dir, n))
+            for n in names[:BATCH]]
+    native = loader._eval_taps
+    evals = {"native": native, "numpy": loader.eval_taps_numpy}
+
+    def with_eval(how, fn):
+        loader._eval_taps = evals[how]
+        try:
+            return fn()
+        finally:
+            loader._eval_taps = native
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    batches = {
+        "yolov5n_letterbox_640": lambda: letterbox_batch(imgs, 640)[0],
+        "ssdlite_resize_320": lambda: np.stack(
+            [loader.resize_bilinear(im, 320, 320) for im in imgs]),
+    }
+    for tag, make in batches.items():
+        ms_np, a_np = with_eval("numpy", lambda: timed(make))
+        ms_nat, a_nat = with_eval("native", lambda: timed(make))
+        ms_nat2, again = with_eval("native", lambda: timed(make))
+        err = float(np.abs(a_nat - a_np).max())
+        if not (np.array_equal(a_nat, again) and err <= RESIZE_TOL):
+            fail(f"resize {tag}: native runs differ or native vs NumPy "
+                 f"{err:.3e} > {RESIZE_TOL}")
+        line("resize", batch=tag, images=BATCH, native_ms=f"{ms_nat:.1f}",
+             native_ms_again=f"{ms_nat2:.1f}", numpy_ms=f"{ms_np:.1f}",
+             speedup=f"{ms_np / ms_nat:.2f}", native_repeat_equal=True,
+             max_abs_vs_numpy=f"{err:.3e}", tol=RESIZE_TOL)
+
+    x = torch.from_numpy(letterbox_batch(imgs, 640)[0]).to(dev)
+    xs = torch.from_numpy(square_batch(imgs, 320)).to(dev)
+    nets = {"yolov5n": (seeded_yolov5("n", 1, x[:16], dev), {}),
+            "ssdlite": (seeded_ssdlite(3, xs[:16], dev),
+                        {"class_map": coco_to_yolov5})}
+    del x, xs
+    for name, (net, kw) in nets.items():
+        def serve(i):
+            run_detection(net, img_dir, os.path.join(tmp, f"ab_{name}_{i}"),
+                          batch_size=BATCH, conf_thres=0.001, iou_thres=0.6,
+                          device="cuda", **kw)
+            torch.cuda.synchronize()
+
+        serve("warm")
+        rates = []
+        for i, how in enumerate(("numpy", "native", "native", "numpy")):
+            ms, _ = with_eval(how, lambda: timed(lambda: serve(i)))
+            rates.append(N_IMAGES / ms * 1e3)
+        line("resize_serving_ab", model=name, images=N_IMAGES, batch=BATCH,
+             order="numpy,native,native,numpy",
+             e2e_img_s=repr([round(r, 1) for r in rates]),
+             numpy_mean=f"{(rates[0] + rates[3]) / 2:.1f}",
+             native_mean=f"{(rates[1] + rates[2]) / 2:.1f}")
+    del nets
+    torch.cuda.empty_cache()
+
+
+# ---- the estimator path ---------------------------------------------------
+EST_VOC_IMAGES = 4952  # the VOC2007 test set
+EST_COCO_IMAGES = 5000  # COCO val2017
+EST_K = 25  # detections per output feature: nc + 5k = 145 (VOC), 205 (COCO)
+EST_FOLDS = 5
+# [estimator_cli]'s CNN: 20 epochs (milestones at the same fractions, 60,
+# 75 and 90%) instead of 100, all 5 folds: at 100 its training steps, bound
+# by launches, would take some 270 s of the script's 1200 (PERF.md).
+CLI_CNN_EPOCHS = 20
+# card against CPU, at the CPU tests' tolerances (tests/test_torch_port_*)
+CLOSE_TOL = 1e-5  # LR, EN, BR, SGD, KNR: of the largest |estimate|
+# SVR, LSVR: validation MSE, relative. Adam near a hinge's optimum takes
+# rounding-driven steps, so at this size the outcome moves with the last
+# bits of the input: [estimators] prints the CPU's own move under 1e-6
+# relative input noise beside the card's difference.
+HINGE_MSE_TOL = 0.25
+# AF: of the largest |w| (its Adam too steps on rounding near the optimum:
+# the CPU's own move under input noise is printed beside it); decisions
+# equal wherever the measured weight difference cannot flip them
+AF_W_TOL = 5e-2
+CNN_MSE_TOL = 0.25  # CNN: validation MSE, relative
+SGD_OPS_PER_FEATURE = 7  # dot (2) and update (5) per feature a step
+SGD_OPS_PER_STEP = 4  # err (2) and the bias (2)
+
+
+def quiet(fn):
+    """fn()'s result with its chatter (per-fold log lines) kept out of the
+    smoke log."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def estimator_workload(dev, tmp, n_img, n_cls, seed):
+    """make_workload's images (n_cls classes) written as YOLO files, their
+    stage-24 output features (n_cls + 5k, from the weak detector's files)
+    and ORIE rewards (E = 1000, on the card); fold 1 of the 5-fold split.
+    Returns (dirs, features, rewards, val_mask, dcsb inputs)."""
+    from edgeml_tpu_torch.data import io as tio
+    from edgeml_tpu_torch.dataprep import split_dataset
+    from edgeml_tpu_torch.reward import orie as torie
+
+    weak, strong, labels = make_workload(np.random.default_rng(seed), n_img,
+                                         n_cls)
+    root = os.path.join(tmp, f"est_{n_img}_{n_cls}")
+    dirs = write_yolo_files(root, weak, strong, labels, seed + 1)
+    feat = os.path.join(root, "features")
+    names = tio.list_image_names(dirs[2])
+    for n in names:
+        os.makedirs(os.path.join(feat, n))
+    tio.extract_output_feature(dirs[0], feat, n_cls, EST_K)
+    x = tio.load_feature(feat, 24, pool=False)
+    reward = torie.orie_rewards(weak, strong, labels, ORIE_E, seed=0,
+                                device=dev)
+    val = split_dataset(n_img, EST_FOLDS)[0]
+    wd = tio.load_data(dirs[0], names, True)
+    boxes = [(np.array([]), np.array([])) if len(d) == 0 else
+             (d[2], (d[1][:, 2] - d[1][:, 0]) * (d[1][:, 3] - d[1][:, 1]))
+             for d in wd]
+    n_lab = np.array([len(l) for l in labels])
+    return dirs, x, reward, val, (boxes, n_lab)
+
+
+def fold(items, val):
+    if isinstance(items, np.ndarray):
+        return items[~val], items[val]
+    return ([f for f, v in zip(items, val) if not v],
+            [f for f, v in zip(items, val) if v])
+
+
+def fit_one(name, d, model_dir, x, reward, val, boxes=None):
+    """One family fitted on device d on fold 1: (result, wall s, pickled
+    state or None). The seeded draws (SGD's orders, RFR's bootstrap, the
+    CNN's init and masks) come from host generators: the same on every
+    device."""
+    from edgeml_tpu_torch import estimators as E
+
+    xtr, xva = fold(x, val)
+    so = E.SaveOpt(model_dir=model_dir)
+    yb = np.where(reward > 0, 1, 0)
+    if name == "AF":
+        data = (xtr, xva, *fold(yb, val))
+        run = lambda: E.fit_af(data, 3.0, so, device=d)
+    elif name == "DCSB":
+        data = (*fold(boxes[0], val), *fold(yb, val))
+        run = lambda: E.fit_dcsb(data, fold(boxes[1], val)[0], so, device=d)
+    elif name == "CNN":
+        data = (xtr, xva, *fold(reward, val))
+        opts = E.CNNOpt(linear=[len(x[0]), 16, 16, 16, 16, 1])
+        run = lambda: E.fit_CNN(data, opts, plot=False, device=d)[0]
+    else:
+        data = (xtr, xva, *fold(reward, val))
+        fit = E.MODEL_FITTERS[E.MODEL_NAMES.index(name)]
+        run = lambda: fit(data, save_opts=so, device=d)
+    t0 = time.perf_counter()
+    res = quiet(run)
+    wall = time.perf_counter() - t0
+    state = None
+    pk = os.path.join(model_dir, "wts1.pickle")
+    if os.path.isfile(pk):
+        with open(pk, "rb") as f:
+            state = pickle.load(f)
+    return res, wall, state
+
+
+def fit_both(name, dev, tmp, x, reward, val, boxes=None):
+    """One family fitted on the card, then on the CPU, on the same fold and
+    the same seeded draws. Returns {"card"/"cpu": fit_one's triple}."""
+    import torch
+
+    return {where: fit_one(name, d, os.path.join(tmp, f"wts_{name}_{where}"),
+                           x, reward, val, boxes)
+            for where, d in (("card", dev), ("cpu", torch.device("cpu")))}
+
+
+def agreement(name, runs, x, reward, val):
+    """(measure, value, bound, ok) of the card against the CPU."""
+    card, cpu = runs["card"][0], runs["cpu"][0]
+    if name in ("RFR", "GBR", "DCSB"):
+        same = all(np.array_equal(card[k], cpu[k])
+                   for k in ("train_est", "val_est"))
+        if name != "DCSB":
+            tc, tp = runs["card"][2][0]["trees"], runs["cpu"][2][0]["trees"]
+            same &= all(np.array_equal(tc[k], tp[k]) for k in tc)
+        else:
+            same &= runs["card"][2] == runs["cpu"][2]
+        return "exact", int(not same), 0, same
+    if name in ("SVR", "LSVR", "CNN"):
+        yv = fold(reward, val)[1]
+        a, b = (float(np.mean((r["val_est"] - yv) ** 2)) for r in (card, cpu))
+        tol = CNN_MSE_TOL if name == "CNN" else HINGE_MSE_TOL
+        rel = abs(a - b) / b
+        return "val_mse_rel", rel, tol, rel <= tol
+    if name == "AF":
+        sc, sp = runs["card"][2], runs["cpu"][2]
+        scale = float(np.abs(sp["w"]).max())
+        dw = max(float(np.abs(sc["w"] - sp["w"]).max()), abs(sc["b"] - sp["b"]))
+        xs = np.stack(x).astype(np.float32)
+        ok = dw <= AF_W_TOL * scale
+        for key, rows in zip(("train_est", "val_est"), fold(xs, val)):
+            # a decision can flip only where the weights' difference can
+            far = np.abs(rows @ sp["w"] + sp["b"]) > \
+                dw * (np.abs(rows).sum(1) + 1)
+            ok &= bool(np.array_equal(card[key][far], cpu[key][far]))
+        return "w_rel", dw / scale, AF_W_TOL, ok
+    err = max(float(np.abs(card[k] - cpu[k]).max()) for k in ("train_est",
+                                                              "val_est"))
+    scale = max(float(np.abs(cpu[k]).max()) for k in ("train_est", "val_est"))
+    return "est_rel", err / scale, CLOSE_TOL, err <= CLOSE_TOL * scale
+
+
+def noise_spread(name, tmp, runs, x, reward, val):
+    """The same measure as ``agreement`` between the CPU's fit and a second
+    CPU fit with each nonzero feature perturbed by 1e-6 of itself (seeded):
+    how far the family's outcome moves with the last bits of its input."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    xn = [f * (1 + 1e-6 * rng.standard_normal(f.shape)) for f in x]
+    noisy = fit_one(name, torch.device("cpu"),
+                    os.path.join(tmp, f"wts_{name}_noise"), xn, reward, val)
+    return agreement(name, {"card": noisy, "cpu": runs["cpu"]}, x, reward,
+                     val)[1]
+
+
+def estimator_case(tag, dev, tmp, names, x, reward, val, boxes=None):
+    """Each family on the card and on the CPU: fit seconds, prediction
+    microseconds per image, validation MSE (accuracy for AF and DCSB) and
+    the card against the CPU. Returns the card's wall seconds by family."""
+    yv = fold(reward, val)[1]
+    walls = {}
+    for name in names:
+        runs = fit_both(name, dev, tmp, x, reward, val, boxes)
+        res, wall, _ = runs["card"]
+        n_pred = len(res["train_est"]) + len(res["val_est"])
+        pred_s = res["train_time"] * len(res["train_est"]) + \
+            res["val_time"] * len(res["val_est"])
+        if name in ("AF", "DCSB"):
+            score = ("val_acc", float(np.mean(res["val_est"]
+                                              == np.where(yv > 0, 1, 0))))
+        else:
+            score = ("val_mse", float(np.mean((res["val_est"] - yv) ** 2)))
+        measure, value, bound, ok = agreement(name, runs, x, reward, val)
+        noise = {}
+        if name in ("SVR", "LSVR", "AF"):
+            noise[f"cpu_noise_{measure}"] = \
+                f"{noise_spread(name, tmp, runs, x, reward, val):.3e}"
+        line("estimators", workload=tag, family=name, train=int((~val).sum()),
+             val=int(val.sum()), features=len(x[0]),
+             fit_s=f"{wall - pred_s:.3f}",
+             predict_us=f"{pred_s / n_pred * 1e6:.3f}",
+             **{score[0]: f"{score[1]:.5f}"},
+             cpu_fit_s=f"{runs['cpu'][1]:.3f}",
+             **{f"card_vs_cpu_{measure}": f"{value:.3e}"}, tol=bound, **noise)
+        if not ok:
+            fail(f"estimators {tag} {name}: card against CPU {measure} "
+                 f"{value:.3e} over {bound}")
+        walls[name] = wall
+    return walls
+
+
+def sgd_bound_ms(n, f, steps):
+    """Least time of one SGD fit: ~7F + 4 f32 operations a step over the
+    non-tensor f32 rate, against x, y, the order and the step sizes read
+    once and w written once over HBM. Returns (ms, bound by)."""
+    t_ops = steps * (SGD_OPS_PER_FEATURE * f + SGD_OPS_PER_STEP) / H100_F32_OPS
+    t_bytes = 4 * (n * f + n + 2 * steps + f + 1) / H100_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def sgd_phase(dev, x, reward, val, launches):
+    """[sgd_scan_vs_plain]: the kernel against the plain eager loop on the
+    card, on fold 1's standardised features and the port's 60 seeded
+    epoch orders: w and b within 1e-5 of the largest |w|, both timed, and
+    the bound. Returns the kernel's JSON record."""
+    import torch
+
+    from edgeml_tpu_torch.estimators import SGDOpt
+    from edgeml_tpu_torch.estimators.common import StandardScaler
+    from edgeml_tpu_torch.ops import sgd as tsgd
+
+    o = SGDOpt()
+    xtr = np.stack(fold(x, val)[0])
+    xs = torch.from_numpy(StandardScaler().fit(xtr).transform(xtr).astype(
+        np.float32)).to(dev)
+    y = torch.from_numpy(fold(reward, val)[0].astype(np.float32)).to(dev)
+    n, f = xs.shape
+    orders = tsgd.sgd_orders(o.seed, n, o.max_epochs)
+    order = torch.from_numpy(orders.reshape(-1)).to(dev)
+    eta = torch.from_numpy(tsgd.sgd_eta(o.eta0, o.power_t,
+                                        order.numel())).to(dev)
+
+    def run():
+        return tsgd.sgd_fit_cuda(xs, y, order, eta, o.alpha)
+
+    wk, bk = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wp, bp = tsgd.sgd_fit_plain(xs, y, order, eta, o.alpha)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(float((wk - wp).abs().max()), abs(float(bk) - float(bp)))
+    scale = float(wp.abs().max())
+    if not err <= CLOSE_TOL * scale:
+        fail(f"sgd_scan: kernel != plain ({err:.3e} > {CLOSE_TOL} x {scale})")
+    k_ms = cuda_ms(run, 3, warmup=1)
+    d_ms = device_ms(run, iters=3, reps=2)
+    h_us = host_us(run, iters=10, reps=3)
+    bound, by = sgd_bound_ms(n, f, order.numel())
+    line("sgd_scan_vs_plain", n=n, f=f, epochs=o.max_epochs,
+         dependent_steps=order.numel(), max_abs_err=f"{err:.3e}",
+         tol=f"{CLOSE_TOL * scale:.3e}", kernel_ms=f"{k_ms:.3f}",
+         device_ms=f"{d_ms:.3f}", host_us=f"{h_us:.1f}",
+         plain_ms=f"{plain_ms:.1f}", bound_ms=f"{bound:.5f}", bound_by=by,
+         ns_per_step=f"{d_ms * 1e6 / order.numel():.1f}",
+         launches_main_path=launches)
+    return {
+        "name": "sgd_scan",
+        "route": "cuda",
+        "source": "edgeml_tpu_torch/csrc/sgd_scan.cu",
+        "replaces": "edgeml_tpu/estimators/linear.py:239",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": k_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+    }
+
+
+def estimator_phases(dev, tmp):
+    """[estimators], [sgd_scan_vs_plain], [estimator_cli]. The VOC-scale
+    workload (4,952 images, 20 classes, 145 features; fold 1 of 5: 3,962
+    train, 990 validation) through all ten families and both baselines on
+    the card and the CPU, then LR, KNR, SVR and RFR at COCO scale (5,000
+    images, 205 features); the SGD kernel against its plain loop; and the
+    whole offline chain as files through the CLIs. The card runs of the
+    VOC families are this path's main run: counts set to 0 before, read
+    after. Returns the SGD kernel's JSON record."""
+    import torch
+
+    from edgeml_tpu_torch.estimators import MODEL_NAMES
+
+    dirs, x, reward, val, boxes = estimator_workload(dev, tmp, EST_VOC_IMAGES,
+                                                     20, 31)
+    reset_counts()
+    walls = estimator_case("voc4952", dev, tmp, MODEL_NAMES + ["AF", "DCSB"],
+                           x, reward, val, boxes)
+    launches = sgd_launches()
+    if launches != 1 or counts() != (0, 0, 0, 0):
+        fail(f"estimators: the SGD kernel launched {launches} times (want 1 "
+             f"for one fit), detection kernels {counts()}")
+    line("estimators_total", workload="voc4952",
+         card_wall_s=f"{sum(walls.values()):.2f}", sgd_launches=launches)
+    record = sgd_phase(dev, x, reward, val, launches)
+    _, xc, rc, vc, _ = estimator_workload(dev, tmp, EST_COCO_IMAGES, ORIE_CLS,
+                                          41)
+    estimator_case("coco5000", dev, tmp, ["LR", "KNR", "SVR", "RFR"], xc, rc,
+                   vc)
+    del xc, rc
+    torch.cuda.empty_cache()
+    estimator_cli_phase(dev, tmp, dirs)
+    return record
+
+
+def estimator_cli_phase(dev, tmp, dirs):
+    """[estimator_cli]: the offline chain on the VOC-scale files, on the
+    card, as a user runs it: the reward CLI (ORIE, E = 1000), features,
+    the 5-fold split, regression (LR, SGD, and the CNN at its defaults:
+    100 epochs, all 5 folds), both baselines and the test CLI on their
+    estimates; the wall seconds of each, the files checked."""
+    from edgeml_tpu_torch.cli import baseline as cb
+    from edgeml_tpu_torch.cli import dataset_split as cs
+    from edgeml_tpu_torch.cli import extract_feature as cf
+    from edgeml_tpu_torch.cli import regression as cr
+    from edgeml_tpu_torch.cli import reward as crw
+    from edgeml_tpu_torch.cli import test as ct
+
+    root = os.path.join(tmp, "cli")
+    os.makedirs(root)
+    weak, strong, labels = dirs
+    out = lambda *p: os.path.join(root, *p)
+    steps = [
+        ("reward", crw, [weak, strong, labels, out("rewards"), "--method",
+                         "orie", "--num-ensemble", str(ORIE_E)]),
+        ("extract_feature", cf, [weak, out("features"), labels, "--dataset",
+                                 "voc"]),
+        ("dataset_split", cs, [labels, out("split.npy")]),
+    ]
+    reward = out("rewards", f"orie{ORIE_E}.npz")
+    for model in ("LR", "SGD", "CNN"):
+        steps.append((f"regression_{model}", cr, [
+            out("features"), reward, out("split.npy"), out(f"est_{model}"),
+            "--model", model, "--model-dir", out(f"wts_{model}")]))
+    steps += [
+        ("baseline_af", cb, [out("features"), reward, out("split.npy"),
+                             out("est_af"), "--baseline", "af",
+                             "--model_dir", out("wts_af")]),
+        ("baseline_dcsb", cb, [weak, reward, out("split.npy"),
+                               out("est_dcsb"), "--baseline", "dcsb",
+                               "--label_dir", labels,
+                               "--model_dir", out("wts_dcsb")]),
+    ]
+    ests = [out("est_LR"), out("est_SGD"), out("est_CNN_best"),
+            out("est_af", "3.0"), out("est_dcsb")]
+    steps.append(("test", ct, [weak, strong, labels, out("split.npy"),
+                               out("test"), "--estimates", *ests]))
+    walls = {}
+    cwd = os.getcwd()
+    cnn_opt = cr.CNNOpt
+    e = CLI_CNN_EPOCHS
+    cr.CNNOpt = lambda: cnn_opt(max_epoch=e, milestones=[
+        e * 60 // 100, e * 75 // 100, e * 90 // 100])
+    os.chdir(root)  # the CNN's loss figures land in the working directory
+    try:
+        reset_counts()
+        for tag, mod, argv in steps:
+            t0 = time.perf_counter()
+            quiet(lambda: mod.main(mod.getargs(argv)))
+            walls[tag] = time.perf_counter() - t0
+        launches = sgd_launches()
+    finally:
+        os.chdir(cwd)
+        cr.CNNOpt = cnn_opt
+    if launches != EST_FOLDS or counts() != (0, 0, 0, 0):
+        fail(f"estimator CLI: the SGD kernel launched {launches} times (want "
+             f"{EST_FOLDS}), detection kernels {counts()}")
+    split = np.load(out("split.npy"))
+    for d in ests + [out("est_CNN_last")]:
+        for k, v in enumerate(split):
+            e = np.load(os.path.join(d, f"estimate{k + 1}.npz"))
+            if e["val_est"].shape != (int(v.sum()),) or \
+                    e["train_est"].shape != (int((~v).sum()),) or \
+                    not np.isfinite(e["val_est"]).all():
+                fail(f"estimator CLI: bad estimates in {d}")
+    for d, name in ((out("wts_LR"), "wts{}.pickle"),
+                    (out("wts_CNN_best"), "wts{}.npz"),
+                    (out("wts_af", "3.0"), "wts{}.pickle"),
+                    (out("wts_dcsb"), "wts{}.pickle")):
+        if not all(os.path.isfile(os.path.join(d, name.format(k)))
+                   for k in range(1, EST_FOLDS + 1)):
+            fail(f"estimator CLI: weight files missing in {d}")
+    tm = np.load(out("test", "test_map.npy"))
+    if not (tm.shape == (len(ests), 11) and np.isfinite(tm).all()
+            and (tm >= 0).all() and (tm <= 1).all()):
+        fail(f"estimator CLI: test_map.npy {tm.shape}")
+    pdfs = sorted(f for f in os.listdir(root) if f.endswith(".pdf"))
+    line("estimator_cli", images=split.shape[1], folds=len(split),
+         cnn_epochs=CLI_CNN_EPOCHS,
+         **{f"{k}_s": f"{v:.2f}" for k, v in walls.items()},
+         sgd_launches=launches, cnn_pdfs=len(pdfs),
+         test_map_shape=repr(tm.shape),
+         map_at_0=f"{tm[0, 0]:.4f}", map_at_1=f"{tm[0, -1]:.4f}",
+         map_at_half=repr([round(float(v), 4) for v in tm[:, 5]]))
 
 if __name__ == "__main__":
     if sys.argv[1:] not in ([], ["--kernels-only"]):

@@ -7,11 +7,14 @@ imports torch and numpy only — never JAX, and nothing of the JAX package.
 
 Ported so far: detection serving, from an image directory to per-image
 detection files, for all five detector families, with every Pallas kernel
-of the reference as a CUDA kernel; and the reward path (ORIE/DCSB rewards,
-``reward/``) and the offloading-policy evaluation (``eval.py``) with their
-CLIs.
+of the reference as a CUDA kernel; the reward path (ORIE/DCSB rewards,
+``reward/``) and the offloading-policy evaluation (``eval.py``); and the
+reward-estimator path (output features, the dataset split, the ten
+regression families and the two baselines, ``estimators/``), all with
+their CLIs.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
 
-__all__ = ["data", "models", "ops", "reward"]
+__all__ = ["data", "dataprep", "estimators", "models", "ops", "reward",
+           "utils"]

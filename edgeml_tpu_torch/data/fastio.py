@@ -31,12 +31,29 @@ _lock = threading.Lock()
 _lib = None
 
 
-def library_path() -> str:
-    """Where the library of the current source and flags is built."""
+def library_path(src: str | None = None, stem: str = "libfastio") -> str:
+    """Where the library of ``src`` (default: ``fastio.cpp``) and the flags
+    is built."""
+    src = src or SRC
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    with open(SRC, "rb") as f:
+    with open(src, "rb") as f:
         h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libfastio-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
+
+
+def build_native(src: str, stem: str) -> ctypes.CDLL:
+    """Compile ``src`` with g++ into ``_build/`` (once per source and flags)
+    and load it; raises with g++'s stderr on a failed build."""
+    so = library_path(src, stem)
+    if not os.path.isfile(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.tmp{os.getpid()}"
+        res = subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, src, "-lpthread"],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed to build {src}:\n{res.stderr}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(so)
 
 
 def _load() -> ctypes.CDLL:
@@ -44,18 +61,7 @@ def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            so = library_path()
-            if not os.path.isfile(so):
-                os.makedirs(BUILD_DIR, exist_ok=True)
-                tmp = f"{so}.tmp{os.getpid()}"
-                res = subprocess.run(
-                    ["g++", *GXX_FLAGS, "-o", tmp, SRC, "-lpthread"],
-                    capture_output=True, text=True)
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        f"g++ failed to build {SRC}:\n{res.stderr}")
-                os.replace(tmp, so)
-            lib = ctypes.CDLL(so)
+            lib = build_native(SRC, "libfastio")
             lib.fastio_load_boxes.argtypes = [
                 ctypes.c_char_p,  # NUL-separated paths
                 ctypes.c_long,  # files

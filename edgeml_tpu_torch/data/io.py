@@ -1,9 +1,11 @@
 """The on-disk format contract and dataset assembly for rewards and
 evaluation.
 
-The port of the JAX package's ``data/io.py`` (its reward-path parts):
+The port of the JAX package's ``data/io.py``:
   * labels:      {img}.txt rows "cls x y w h" (normalised xywh-center);
-  * detections:  {img}.txt or {img}.npy rows "cls x y w h conf".
+  * detections:  {img}.txt or {img}.npy rows "cls x y w h conf";
+  * features:    {img}/stage{S}_{Name}_features.npy (C, H, W);
+  * output feat: {img}/stage24_output_features.npy (num_class + 5k,).
 
 ``set_data`` pads the whole dataset to fixed shapes once and runs the
 batched ``box_correct`` over all images on the device, in chunks of fixed
@@ -174,3 +176,50 @@ def set_data(weak: str, strong: str, label: str,
         labels.append(labels_raw[i][0] if len(labels_raw[i]) > 0
                       else np.array([]))
     return weak_data, strong_data, labels
+
+
+def load_feature(path: str, stage: int, pool: bool = True,
+                 batch_size: int = 128, func: str = "avg", size: int = 8):
+    """Per-image feature maps ``{img}/stage{S}_{Name}_features.npy`` of every
+    image directory under ``path``, in sorted order: the stage-24 output
+    features (num_class + 5k,) or a hidden stage's raw (C, H, W) maps.
+
+    ``pool=True`` (RoI-resizing hidden maps to ``size``) needs
+    ``ops/roi.py``, which is not ported yet, and raises.
+    """
+    if pool:
+        raise NotImplementedError(
+            "load_feature(pool=True) (RoI-resized hidden-stage maps) is not "
+            "yet ported")
+    images = sorted(
+        f for f in os.listdir(path) if not os.path.isfile(os.path.join(path, f))
+    )
+    name = f"stage{stage}_{V5_STAGE_NAMES[stage]}_features.npy"
+    return [np.load(os.path.join(path, img, name)) for img in images]
+
+
+def extract_output_feature(output_path: str, feature_path: str,
+                           num_class: int, k: int = 25):
+    """Adaptive-Feeding output features from each image's first k detections.
+
+    A float64 vector of length num_class + 5k: the class histogram of the
+    first k rows, then their (x, y, w, h, conf) flattened, saved as
+    ``{img}/stage24_output_features.npy`` for every image directory under
+    ``feature_path``. Rows are taken in file order, not re-sorted by
+    confidence.
+    """
+    img_names = sorted(
+        f for f in os.listdir(feature_path)
+        if not os.path.isfile(os.path.join(feature_path, f))
+    )
+    for img in img_names:
+        feature = np.zeros((num_class + 5 * k,), float)
+        arr = _read_rows(os.path.join(output_path, img))
+        if arr is not None:
+            arr = arr[:k]
+            for c in arr[:, 0].astype(int):
+                feature[c] += 1
+            flat = arr[:, 1:].flatten()
+            feature[num_class: num_class + flat.size] = flat
+        np.save(os.path.join(feature_path, img, "stage24_output_features.npy"),
+                feature)

@@ -4,11 +4,15 @@ Images decode and letterbox per batch in background threads, prefetched so
 the host prepares the next batches while the device runs the current one.
 Peak host memory is bounded by (prefetch + 1) batches of decoded images.
 
-Resizing evaluates banded bilinear taps in NumPy with the semantics of the
-reference package's resize (half-pixel centres, triangle kernel widened to
-1/scale when downscaling, out-of-range taps dropped and rows renormalised).
-The reference evaluates the same weights through a native C++ fast path in
-another summation order; the two agree to 2e-6.
+Resizing computes banded bilinear taps with the semantics of the reference
+package's resize (half-pixel centres, triangle kernel widened to 1/scale
+when downscaling, out-of-range taps dropped and rows renormalised) and
+evaluates them through the repository's native resampler
+(``native/resize.cpp``, bound by ``fastresize``), as the JAX package does:
+the same taps through the same library, so the pixels are bit-equal to its.
+``eval_taps_numpy`` evaluates the same taps in NumPy, in another summation
+order (within 2e-6); the tests and the smoke run use it as the reference,
+serving never calls it.
 """
 
 from __future__ import annotations
@@ -81,7 +85,16 @@ def resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
 
 
 def _eval_taps(img, out_h, out_w, row_taps, col_taps):
-    """Evaluate banded resampling taps by per-tap NumPy accumulation."""
+    """Evaluate banded resampling taps with the native resampler (raises if
+    it cannot be built)."""
+    from .fastresize import native_resize
+
+    return native_resize(img, out_h, out_w, *row_taps, *col_taps)
+
+
+def eval_taps_numpy(img, out_h, out_w, row_taps, col_taps):
+    """Evaluate banded resampling taps by per-tap NumPy accumulation: the
+    same weights as ``_eval_taps`` in another summation order."""
     jh, wh = row_taps
     jw, ww = col_taps
     img = np.ascontiguousarray(img, np.float32)

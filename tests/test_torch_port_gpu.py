@@ -3,18 +3,23 @@ blocked, K <= 2048; sequential, the cluster kernel up to K = 1024 and the
 literal loop above) and the row-gather kernel against their plain versions,
 the batched suppressor's K > 2048 route, the serving slices (YOLOv5,
 SSDLite, Faster R-CNN) through them, every family's heads and files (and
-Faster R-CNN's RoIAlign and box head) against the CPU's, and the reward path
-(the mAP core, ORIE rewards, the reward and test CLIs) against the CPU's.
+Faster R-CNN's RoIAlign and box head) against the CPU's, the reward path
+(the mAP core, ORIE rewards, the reward and test CLIs) against the CPU's, and
+the estimator path: the SGD scan kernel against its plain loop, the trees
+and DCSB (exactly) and the linear families (1e-5) against the CPU's, and the
+new CLIs on the card against ``--device cpu``.
 
 Marked ``gpu``; the ``cuda`` fixture skips every test where no CUDA device is
 present (decided when the test runs, never at import). Run on the card with
 
     python -m pytest tests/test_torch_port_gpu.py -m gpu -q
 
-Tolerance: none for the kernels — kernel and plain masks and the dets of the
+Tolerance: none for the detection kernels — kernel and plain masks and the dets of the
 kernel and plain tails are compared bit for bit. Card against CPU: heads 1e-4
 of each output's largest value (Faster R-CNN's RPN 3e-4), files as
-``chip_smoke.py`` pairs them, each mAP 3e-5, ORIE 6e-5 (E + 1).
+``chip_smoke.py`` pairs them, each mAP 3e-5, ORIE 6e-5 (E + 1). The SGD
+kernel and its plain loop differ in each dot's summation order: 1e-5 of the
+largest |w|.
 """
 
 import os
@@ -922,3 +927,188 @@ def test_faster_rcnn_second_stage_card_equals_cpu(cuda):
         assert float((p16.float().cpu() - net.roi_align(
             feats[:4], boxes, tfr.ROI_PYR).float()).abs().max()) <= 4e-2
         assert _heads_rel_err(card.box_head(pooled.to(cuda)), head) < 1e-4
+
+
+# ---- the estimator path: the SGD kernel, the trees and the CLIs ----------
+
+def _sgd_inputs(n, f, epochs, seed):
+    from edgeml_tpu_torch.ops import sgd as tsgd
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    y = (x @ rng.normal(size=f) / np.sqrt(f) + 0.3).astype(np.float32)
+    order = tsgd.sgd_orders(seed, n, epochs).reshape(-1)
+    eta = tsgd.sgd_eta(0.01, 0.25, order.size)
+    return x, y, order, eta
+
+
+@pytest.mark.parametrize("f", [1, 31, 33, 64, 145, 205, 1024])
+def test_sgd_kernel_equals_plain(cuda, f):
+    """One launch per fit; w and b within 1e-5 of the largest |w| of the
+    plain loop on the card (the two differ in each dot's summation
+    order)."""
+    from edgeml_tpu_torch.ops import sgd as tsgd
+
+    x, y, order, eta = (torch.from_numpy(a).to(cuda)
+                        for a in _sgd_inputs(150, f, 3, f))
+    before = tsgd.sgd_fit_cuda.launches
+    wk, bk = tsgd.sgd_fit_cuda(x, y, order, eta, 0.001)
+    torch.cuda.synchronize()
+    assert tsgd.sgd_fit_cuda.launches == before + 1
+    wp, bp = tsgd.sgd_fit_plain(x, y, order, eta, 0.001)
+    scale = float(wp.abs().max())
+    assert float((wk - wp).abs().max()) <= 1e-5 * scale
+    assert abs(float(bk) - float(bp)) <= 1e-5 * max(scale, abs(float(bp)))
+
+
+def test_sgd_kernel_edges(cuda):
+    """No steps leaves w = 0, b = 0; F > 1024 and CPU tensors are refused
+    without a launch; sgd_fit dispatches CUDA tensors to the kernel."""
+    from edgeml_tpu_torch.ops import sgd as tsgd
+
+    x, y, order, eta = (torch.from_numpy(a).to(cuda)
+                        for a in _sgd_inputs(20, 8, 2, 1))
+    w, b = tsgd.sgd_fit_cuda(x, y, order[:0], eta[:0], 0.001)
+    assert not w.any() and float(b) == 0.0
+    before = tsgd.sgd_fit_cuda.launches
+    with pytest.raises(ValueError, match="outside"):
+        tsgd.sgd_fit_cuda(torch.zeros(4, 1025, device=cuda),
+                          torch.zeros(4, device=cuda), order[:4] % 4,
+                          eta[:4], 0.001)
+    assert tsgd.sgd_fit_cuda.launches == before
+    w, b = tsgd.sgd_fit(x, y, order.cpu().numpy().reshape(2, 20), 0.001,
+                        0.01, 0.25)
+    assert w.device.type == "cuda" and tsgd.sgd_fit_cuda.launches == before + 1
+
+
+def test_ordered_sums_card_equals_cpu(cuda):
+    """The histogram sums on the card: sequential in sample order, bit for
+    bit the CPU's (and numpy's add.at), run after run."""
+    from edgeml_tpu_torch.estimators import trees as tt
+
+    rng = np.random.default_rng(0)
+    cell = rng.integers(0, 300, 200_000)
+    cell[:5000] = 7  # one long segment
+    vals = (rng.normal(size=cell.size)
+            * 10 ** rng.uniform(-3, 3, cell.size)).astype(np.float32)
+    want = np.zeros(300, np.float32)
+    np.add.at(want, cell, vals)
+    for _ in range(3):
+        got = tt.ordered_sums(torch.from_numpy(cell).to(cuda),
+                              torch.from_numpy(vals).to(cuda), 300)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _est_data(seed, n=400, n_val=100, f=12):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n + n_val, f))
+    x[:, 3] = x[:, 1]
+    x[:, 4] = 0.0
+    x[:, 5] = np.round(x[:, 5])
+    y = np.sin(x[:, 0]) + 0.5 * x[:, 1] ** 2 + 0.1 * rng.normal(size=n + n_val)
+    return ([r for r in x[:n]], [r for r in x[n:]], y[:n], y[n:])
+
+
+@pytest.mark.parametrize("family", ["RFR", "GBR"])
+def test_trees_card_equal_cpu(cuda, family, tmp_path):
+    """The card's trees equal the CPU's node for node, and so do the
+    estimates."""
+    import pickle
+
+    from edgeml_tpu_torch import estimators as E
+
+    data = _est_data(3)
+    opts = (E.RFROpt(n_estimators=6, max_depth=8, min_samples_split=20)
+            if family == "RFR" else E.GBROpt(n_estimators=60))
+    fit = E.fit_RFR if family == "RFR" else E.fit_GBR
+    res, trees = {}, {}
+    for d in ("cuda", "cpu"):
+        res[d] = fit(data, opts, E.SaveOpt(model_dir=str(tmp_path / d)),
+                     device=d)
+        with open(tmp_path / d / "wts1.pickle", "rb") as f:
+            trees[d] = pickle.load(f)[0]["trees"]
+    for k in trees["cpu"]:
+        np.testing.assert_array_equal(trees["cuda"][k], trees["cpu"][k])
+    for k in ("train_est", "val_est"):
+        np.testing.assert_array_equal(res["cuda"][k], res["cpu"][k])
+
+
+@pytest.mark.parametrize("family", ["LR", "EN", "BR", "SGD", "KNR"])
+def test_linear_families_card_close_to_cpu(cuda, family):
+    """Card against CPU within the CPU tests' 1e-5 of the largest
+    estimate (TF32 off on the card)."""
+    from edgeml_tpu_torch import estimators as E
+
+    data = _est_data(4)
+    fit = E.MODEL_FITTERS[E.MODEL_NAMES.index(family)]
+    card, cpu = fit(data, device="cuda"), fit(data, device="cpu")
+    for k in ("train_est", "val_est"):
+        scale = float(np.abs(cpu[k]).max())
+        assert float(np.abs(card[k] - cpu[k]).max()) <= 1e-5 * scale
+
+
+def test_dcsb_card_equals_cpu(cuda):
+    from edgeml_tpu_torch import estimators as E
+
+    rng = np.random.default_rng(5)
+    feats = []
+    for _ in range(300):
+        k = int(rng.integers(0, 9))
+        conf = rng.random(k)
+        conf[rng.random(k) < 0.2] = 0.50000001
+        feats.append((conf, rng.random(k) * 0.5))
+    r = rng.integers(0, 2, 300)
+    data = (feats[:240], feats[240:], r[:240], r[240:])
+    lab = rng.integers(0, 6, 240)
+    card = E.fit_dcsb(data, lab, device="cuda")
+    cpu = E.fit_dcsb(data, lab, device="cpu")
+    for k in ("train_est", "val_est"):
+        np.testing.assert_array_equal(card[k], cpu[k])
+
+
+def test_estimator_clis_on_cuda(cuda, tmp_path):
+    """The four new CLIs on the card (no --device) against --device cpu:
+    the split and the features byte for byte, LR and SGD estimates within
+    1e-5, DCSB's equal; the SGD kernel launched once per fold."""
+    from edgeml_tpu_torch.cli import baseline as cb
+    from edgeml_tpu_torch.cli import dataset_split as cs_
+    from edgeml_tpu_torch.cli import extract_feature as cf
+    from edgeml_tpu_torch.cli import regression as cr
+    from edgeml_tpu_torch.ops import sgd as tsgd
+    from test_torch_port_io import write_dataset
+
+    weak, _, labels = write_dataset(str(tmp_path / "data"), seed=8, n_img=40)
+    rng = np.random.default_rng(2)
+    np.savez(tmp_path / "r.npz", reward=rng.normal(0, 0.1, 40).astype(
+        np.float32), time=1.0)
+    runs = {}
+    for where, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        o = tmp_path / where
+        cs_.main(cs_.getargs([labels, str(o) + "_split.npy", "--num-split",
+                              "4", *extra]))
+        cf.main(cf.getargs([weak, str(o / "feat"), labels, "--dataset", "voc",
+                            *extra]))
+        before = tsgd.sgd_fit_cuda.launches
+        for model in ("LR", "SGD"):
+            cr.main(cr.getargs([str(o / "feat"), str(tmp_path / "r.npz"),
+                                str(o) + "_split.npy", str(o / model),
+                                "--model", model, *extra]))
+        cb.main(cb.getargs([weak, str(tmp_path / "r.npz"),
+                            str(o) + "_split.npy", str(o / "dcsb"),
+                            "--baseline", "dcsb", "--label_dir", labels,
+                            *extra]))
+        runs[where] = tsgd.sgd_fit_cuda.launches - before
+    assert runs == {"card": 4, "cpu": 0}
+    card, cpu = tmp_path / "card", tmp_path / "cpu"
+    assert (tmp_path / "card_split.npy").read_bytes() == \
+        (tmp_path / "cpu_split.npy").read_bytes()
+    for name in sorted(os.listdir(cpu / "feat")):
+        f = os.path.join(name, "stage24_output_features.npy")
+        assert (card / "feat" / f).read_bytes() == (cpu / "feat" / f).read_bytes()
+    for k in range(1, 5):
+        for model, tol in (("LR", 1e-5), ("SGD", 1e-5), ("dcsb", 0)):
+            a = np.load(card / model / f"estimate{k}.npz")
+            b = np.load(cpu / model / f"estimate{k}.npz")
+            for key in ("train_est", "val_est"):
+                scale = float(np.abs(b[key]).max())
+                assert float(np.abs(a[key] - b[key]).max()) <= tol * scale

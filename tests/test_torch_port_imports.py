@@ -33,7 +33,12 @@ def test_import_pulls_in_no_jax():
               "models.resnet", "models.retinanet", "models.faster_rcnn",
               "data.coco_labelmap", "ops.metrics", "ops.map_kernel",
               "data.io", "data.fastio", "reward.orie", "eval",
-              "cli.reward", "cli.test"):
+              "cli.reward", "cli.test", "data.fastresize", "utils.paths",
+              "dataprep.split", "ops.sgd", "estimators.common",
+              "estimators.linear", "estimators.trees", "estimators.nn",
+              "estimators.train_cnn", "estimators.plotting",
+              "estimators.baselines", "cli.dataset_split",
+              "cli.extract_feature", "cli.regression", "cli.baseline"):
         assert "edgeml_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

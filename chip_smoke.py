@@ -32,7 +32,17 @@ what comes out:
     generator): ORIE at E = 1000 over N = 2048 and 5000 images (mAP@0.5)
     and 2048 (mAP@0.5:0.95), held against the port's CPU path, seeded and
     batch-independent; ``test_map`` on the 5000-image pool; the reward and
-    test CLIs end to end on YOLO-format files.
+    test CLIs end to end on YOLO-format files;
+  * the estimator path (every family card against CPU, the SGD kernel, the
+    offline chain of CLIs);
+  * the hidden-stage path: ``dump_features`` of a seeded YOLOv5n over the
+    256 images (stages 9, 17, 20 and 23, 840 MB of maps) with four images
+    against a CPU run, ``roi_resize_batch`` on the card against the CPU
+    (max bit-equal, avg 1e-6) with its time against its bytes bound, the
+    chain detection -> labels -> reward -> split -> regression (the CNN on
+    stage 23 RoI-pooled to 8) -> test through the CLIs, the label CLI on a
+    synthetic 5,000-image COCO tree and a VOC tree, and the COCO evaluator
+    (greedy card against CPU bit for bit, and the COCOeval style).
 
 Before the serving paths, each kernel is held against its plain version
 bit for bit and timed (``kernel_ms`` looped, ``device_ms`` from a CUDA
@@ -730,6 +740,7 @@ def main(kernels_only=False):
         records += frcnn_phases(dev, tmp, img_dir, shapes, gather_record)
         reward_phases(dev, tmp)
         records.append(estimator_phases(dev, tmp))
+        hidden_phases(dev, tmp, img_dir)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     line("wall", script_s=f"{time.perf_counter() - start:.1f}")
@@ -2496,10 +2507,20 @@ EST_VOC_IMAGES = 4952  # the VOC2007 test set
 EST_COCO_IMAGES = 5000  # COCO val2017
 EST_K = 25  # detections per output feature: nc + 5k = 145 (VOC), 205 (COCO)
 EST_FOLDS = 5
-# [estimator_cli]'s CNN: 20 epochs (milestones at the same fractions, 60,
-# 75 and 90%) instead of 100, all 5 folds: at 100 its training steps, bound
-# by launches, would take some 270 s of the script's 1200 (PERF.md).
-CLI_CNN_EPOCHS = 20
+# Every CNN of the script trains 20 epochs (milestones at the same
+# fractions, 60, 75 and 90%) instead of 100: its training steps are bound
+# by launches, and at 100 the CLI's five folds took some 270 s and the
+# fold-1 fit on the card and the CPU 85-120 s of the script's 1200 (PERF.md)
+CNN_EPOCHS = 20
+
+
+def cnn_cut(base, **kw):
+    """``base`` (CNNOpt) at CNN_EPOCHS, its milestones scaled."""
+    e = CNN_EPOCHS
+    return base(max_epoch=e, milestones=[e * 60 // 100, e * 75 // 100,
+                                         e * 90 // 100], **kw)
+
+
 # card against CPU, at the CPU tests' tolerances (tests/test_torch_port_*)
 CLOSE_TOL = 1e-5  # LR, EN, BR, SGD, KNR: of the largest |estimate|
 # SVR, LSVR: validation MSE, relative. Adam near a hinge's optimum takes
@@ -2578,7 +2599,7 @@ def fit_one(name, d, model_dir, x, reward, val, boxes=None):
         run = lambda: E.fit_dcsb(data, fold(boxes[1], val)[0], so, device=d)
     elif name == "CNN":
         data = (xtr, xva, *fold(reward, val))
-        opts = E.CNNOpt(linear=[len(x[0]), 16, 16, 16, 16, 1])
+        opts = cnn_cut(E.CNNOpt, linear=[len(x[0]), 16, 16, 16, 16, 1])
         run = lambda: E.fit_CNN(data, opts, plot=False, device=d)[0]
     else:
         data = (xtr, xva, *fold(reward, val))
@@ -2785,7 +2806,8 @@ def estimator_phases(dev, tmp):
         fail(f"estimators: the SGD kernel launched {launches} times (want 1 "
              f"for one fit), detection kernels {counts()}")
     line("estimators_total", workload="voc4952",
-         card_wall_s=f"{sum(walls.values()):.2f}", sgd_launches=launches)
+         card_wall_s=f"{sum(walls.values()):.2f}", sgd_launches=launches,
+         cnn_epochs=CNN_EPOCHS)
     record = sgd_phase(dev, x, reward, val, launches)
     _, xc, rc, vc, _ = estimator_workload(dev, tmp, EST_COCO_IMAGES, ORIE_CLS,
                                           41)
@@ -2800,8 +2822,8 @@ def estimator_phases(dev, tmp):
 def estimator_cli_phase(dev, tmp, dirs):
     """[estimator_cli]: the offline chain on the VOC-scale files, on the
     card, as a user runs it: the reward CLI (ORIE, E = 1000), features,
-    the 5-fold split, regression (LR, SGD, and the CNN at its defaults:
-    100 epochs, all 5 folds), both baselines and the test CLI on their
+    the 5-fold split, regression (LR, SGD, and the CNN at CNN_EPOCHS, all 5
+    folds), both baselines and the test CLI on their
     estimates; the wall seconds of each, the files checked."""
     from edgeml_tpu_torch.cli import baseline as cb
     from edgeml_tpu_torch.cli import dataset_split as cs
@@ -2842,9 +2864,7 @@ def estimator_cli_phase(dev, tmp, dirs):
     walls = {}
     cwd = os.getcwd()
     cnn_opt = cr.CNNOpt
-    e = CLI_CNN_EPOCHS
-    cr.CNNOpt = lambda: cnn_opt(max_epoch=e, milestones=[
-        e * 60 // 100, e * 75 // 100, e * 90 // 100])
+    cr.CNNOpt = lambda: cnn_cut(cnn_opt)
     os.chdir(root)  # the CNN's loss figures land in the working directory
     try:
         reset_counts()
@@ -2880,12 +2900,449 @@ def estimator_cli_phase(dev, tmp, dirs):
         fail(f"estimator CLI: test_map.npy {tm.shape}")
     pdfs = sorted(f for f in os.listdir(root) if f.endswith(".pdf"))
     line("estimator_cli", images=split.shape[1], folds=len(split),
-         cnn_epochs=CLI_CNN_EPOCHS,
+         cnn_epochs=CNN_EPOCHS,
          **{f"{k}_s": f"{v:.2f}" for k, v in walls.items()},
          sgd_launches=launches, cnn_pdfs=len(pdfs),
          test_map_shape=repr(tm.shape),
          map_at_0=f"{tm[0, 0]:.4f}", map_at_1=f"{tm[0, -1]:.4f}",
          map_at_half=repr([round(float(v), 4) for v in tm[:, 5]]))
+
+# ---- hidden-stage features, labels and the COCO evaluator ---------------
+
+HIDDEN_STAGES = (9, 17, 20, 23)  # dump_features' default taps
+# YOLOv5n's taps at 640 (80 classes): SPPF, then the three head inputs
+TAP_SHAPES = {9: (256, 20, 20), 17: (64, 80, 80), 20: (128, 40, 40),
+              23: (256, 20, 20)}
+DUMP_CPU_IMAGES = 4  # dump_features on the card against a CPU run
+ROI_P = 8  # the estimator CLI's --resize
+ROI_BATCH = 128  # load_feature's batch
+ROI_CPU_IMAGES = 32  # of the batch, held against the CPU
+ROI_AVG_TOL = 1e-6  # roi_align, card against CPU: of the call's largest value
+LABEL_COCO_IMAGES = 5000  # COCO val2017
+LABEL_COCO_OBJECTS = 7  # objects an image, about val2017's mean
+LABEL_COCO_TRAIN_IMAGES = 500  # the CLI converts train2017 too
+LABEL_VOC_IMAGES = 20  # each of the five VOC splits
+HIDDEN_LABELS = 5  # labels an image: the strong detector's top rows
+
+
+def hidden_net(dev, img_dir, seed):
+    """A seeded full-width YOLOv5n (80 classes, 640), BatchNorm statistics
+    from the first 16 letterboxed images."""
+    import torch
+
+    from edgeml_tpu_torch.data.loader import decode_image
+    from edgeml_tpu_torch.models.common import letterbox_batch
+
+    names = sorted(os.listdir(img_dir))[:16]
+    lb, _ = letterbox_batch(
+        [decode_image(os.path.join(img_dir, n)) for n in names], 640)
+    return seeded_yolov5("n", seed, torch.from_numpy(lb).to(dev), dev)
+
+
+def tap_name(stage):
+    from edgeml_tpu_torch.data.io import V5_STAGE_NAMES
+
+    return f"stage{stage}_{V5_STAGE_NAMES[stage]}_features.npy"
+
+
+def hidden_phases(dev, tmp, img_dir):
+    """[dump_features], [roi_resize], [hidden_cli], [label_cli] and
+    [eval_coco]: the hidden-stage feature path, the label converter and the
+    COCO evaluator over the 256 serving images."""
+    import torch
+
+    root = os.path.join(tmp, "hidden")
+    os.makedirs(root)
+    walls = {}
+
+    def timed(tag, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[tag] = time.perf_counter() - t0
+        return out
+
+    net = timed("net", hidden_net, dev, img_dir, 1)
+    feat = timed("dump_features", dump_features_phase, dev, root, img_dir,
+                 net)
+    timed("roi_resize", roi_resize_phase, dev, feat)
+    dirs = timed("hidden_cli", hidden_cli_phase, dev, root, img_dir, net,
+                 feat)
+    del net
+    torch.cuda.empty_cache()
+    timed("label_cli", label_cli_phase, root)
+    timed("eval_coco", eval_coco_phase, dev, dirs)
+    line("hidden_wall", total_s=f"{sum(walls.values()):.1f}",
+         **{f"{k}_s": f"{v:.1f}" for k, v in walls.items()})
+
+
+def dump_features_phase(dev, root, img_dir, net):
+    """dump_features of the seeded YOLOv5n over the serving images (one
+    image a forward, f32, TF32 off): every file's name, dtype and shape, and
+    DUMP_CPU_IMAGES images' maps against a CPU run of the same net, each
+    within 1e-4 of its largest value. Returns the feature tree."""
+    import torch
+
+    from edgeml_tpu_torch.models.infer import dump_features
+
+    names = sorted(os.listdir(img_dir))
+    sub = os.path.join(root, "dump_images")
+    os.makedirs(sub)
+    for n in names[:DUMP_CPU_IMAGES]:
+        shutil.copy(os.path.join(img_dir, n), sub)
+    # the card's run on the few images doubles as the warm-up
+    dump_features(net, sub, os.path.join(root, "dump_card"))
+    dump_features(copy.deepcopy(net).cpu(), sub,
+                  os.path.join(root, "dump_cpu"), device="cpu")
+    worst = 0.0
+    for n in names[:DUMP_CPU_IMAGES]:
+        stem = n.rsplit(".", 1)[0]
+        for stage in HIDDEN_STAGES:
+            a, b = (np.load(os.path.join(root, d, stem, tap_name(stage)))
+                    for d in ("dump_card", "dump_cpu"))
+            worst = max(worst, float(np.abs(a - b).max())
+                        / float(np.abs(b).max()))
+    feat = os.path.join(root, "features")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dump_features(net, img_dir, feat)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_bytes = 0
+    for n in names:
+        d = os.path.join(feat, n.rsplit(".", 1)[0])
+        if sorted(os.listdir(d)) != sorted(tap_name(s) for s in HIDDEN_STAGES):
+            fail(f"dump_features: files of {d}: {sorted(os.listdir(d))}")
+        for stage in HIDDEN_STAGES:
+            a = np.load(os.path.join(d, tap_name(stage)), mmap_mode="r")
+            if a.dtype != np.float32 or a.shape != TAP_SHAPES[stage]:
+                fail(f"dump_features: {d} stage {stage}: {a.dtype} {a.shape}")
+            n_bytes += a.nbytes
+    if len(os.listdir(feat)) != len(names):
+        fail(f"dump_features: {len(os.listdir(feat))} directories for "
+             f"{len(names)} images")
+    # where an image's time goes: the forward alone (a device-resident
+    # letterboxed image), the four maps' copies to the host, their writes
+    from edgeml_tpu_torch.data.loader import decode_image
+    from edgeml_tpu_torch.models.common import letterbox_batch
+
+    lb, _ = letterbox_batch([decode_image(os.path.join(img_dir, names[0]))],
+                            640)
+    x = torch.from_numpy(lb).to(dev)
+    fwd_ms = cuda_ms(lambda: net.taps(x, HIDDEN_STAGES), 20)
+    taps = net.taps(x, HIDDEN_STAGES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        maps = [taps[st][0].cpu().numpy() for st in HIDDEN_STAGES]
+    d2h_ms = (time.perf_counter() - t0) / 20 * 1e3
+    probe = os.path.join(root, "save_probe")
+    os.makedirs(probe)
+    t0 = time.perf_counter()
+    for i in range(20):
+        for st, a in zip(HIDDEN_STAGES, maps):
+            np.save(os.path.join(probe, f"{i}_{tap_name(st)}"), a)
+    save_ms = (time.perf_counter() - t0) / 20 * 1e3
+    shutil.rmtree(probe)
+    line("dump_features", images=len(names), stages=repr(HIDDEN_STAGES),
+         files=len(names) * len(HIDDEN_STAGES), mb=f"{n_bytes / 1e6:.1f}",
+         wall_s=f"{wall:.2f}", img_s=f"{len(names) / wall:.1f}",
+         ms_per_img=f"{wall / len(names) * 1e3:.1f}",
+         forward_ms=f"{fwd_ms:.2f}", d2h_ms=f"{d2h_ms:.2f}",
+         save_ms=f"{save_ms:.2f}",
+         vs_cpu_images=DUMP_CPU_IMAGES, max_rel_err=f"{worst:.3e}",
+         tol=f"{CPU_SUITE_TOL:g} x each map's max")
+    if not worst < CPU_SUITE_TOL:
+        fail(f"dump_features: the card's maps disagree with the CPU's "
+             f"({worst:.3e})")
+    return feat
+
+
+def roi_resize_phase(dev, feat):
+    """roi_resize_batch on the card against the CPU path for stages 17 and
+    23 at P = ROI_P, avg and max, on ROI_BATCH dumped maps cropped to
+    seeded ragged (h, w) and square-padded top-left as load_feature builds
+    them: max bit-equal, avg within ROI_AVG_TOL of its largest value; the
+    card's time per batch against its bytes bound."""
+    import torch
+
+    from edgeml_tpu_torch.ops.roi import roi_resize, roi_resize_batch
+
+    rng = np.random.default_rng(8)
+    images = sorted(os.listdir(feat))[:ROI_BATCH]
+    n_cpu = min(ROI_CPU_IMAGES, len(images))
+    for stage in (17, 23):
+        c, s, _ = TAP_SHAPES[stage]
+        sizes = rng.integers(s // 2, s + 1, (len(images), 2)).astype(
+            np.float32)
+        sizes[0] = s
+        f = np.zeros((len(images), c, s, s), np.float32)
+        for i, img in enumerate(images):
+            h, w = sizes[i].astype(int)
+            f[i, :, :h, :w] = np.load(
+                os.path.join(feat, img, tap_name(stage)))[:, :h, :w]
+        f_dev = torch.from_numpy(f).to(dev)
+        sz_dev = torch.from_numpy(sizes).to(dev)
+        bound = (f.nbytes + f.nbytes // (s * s) * ROI_P * ROI_P) \
+            / H100_BYTES * 1e3
+        for func in ("max", "avg"):
+            # the CPU holds the first ROI_CPU_IMAGES (an image's result does
+            # not depend on its batch: tests/test_torch_port_roi.py)
+            card = roi_resize_batch(f, sizes, ROI_P, func)[:n_cpu]
+            cpu = roi_resize_batch(f[:n_cpu], sizes[:n_cpu], ROI_P, func,
+                                   device="cpu")
+            err = float(np.abs(card - cpu).max())
+            rel = err / float(np.abs(cpu).max())
+            ms = cuda_ms(lambda: roi_resize(f_dev, sz_dev, ROI_P, func), 5)
+            line("roi_resize", stage=stage, func=func, batch=len(images),
+                 shape=repr((c, s, s)), out=ROI_P, ms=f"{ms:.3f}",
+                 vs_cpu_images=n_cpu,
+                 bound_ms=f"{bound:.4f}", bound_by="bytes",
+                 max_abs_err=f"{err:.3e}", max_rel_err=f"{rel:.3e}",
+                 tol="bit-equal" if func == "max"
+                 else f"{ROI_AVG_TOL:g} x the largest value")
+            if card.shape != (n_cpu, c, ROI_P, ROI_P) or not (
+                    err == 0 if func == "max" else rel <= ROI_AVG_TOL):
+                fail(f"roi_resize: stage {stage} {func}: the card disagrees "
+                     f"with the CPU ({err:.3e})")
+        del f_dev
+        torch.cuda.empty_cache()
+
+
+def write_labels(strong_dir, label_dir, k):
+    """Labels from the strong detector's files: each image's k most
+    confident rows as "cls x y w h"."""
+    os.makedirs(label_dir)
+    for n in sorted(os.listdir(strong_dir)):
+        rows = np.loadtxt(os.path.join(strong_dir, n), ndmin=2)
+        with open(os.path.join(label_dir, n), "w") as f:
+            f.writelines(f"{int(r[0])} {r[1]:.6f} {r[2]:.6f} {r[3]:.6f} "
+                         f"{r[4]:.6f}\n" for r in rows[:k])
+
+
+def hidden_cli_phase(dev, root, img_dir, net, feat):
+    """The hidden-stage chain on the card: detection files of the weak
+    (seeded YOLOv5n) and the strong detector (a second seeded YOLOv5n),
+    labels from the strong's top rows, the reward CLI (ORIE), the feature
+    tree of [dump_features], the split CLI, the regression CLI on stage 23
+    RoI-pooled to ROI_P (the CNN, CNN_EPOCHS epochs, 5 folds) and the
+    test CLI; each step's wall, the files checked. Returns the weak, strong
+    and label directories."""
+    from edgeml_tpu_torch.cli import dataset_split as cs
+    from edgeml_tpu_torch.cli import regression as cr
+    from edgeml_tpu_torch.cli import reward as crw
+    from edgeml_tpu_torch.cli import test as ct
+    from edgeml_tpu_torch.models.infer import run_detection
+
+    out = lambda *p: os.path.join(root, "cli", *p)  # noqa: E731
+    os.makedirs(out())
+    weak, strong, labels = out("weak"), out("strong"), out("labels")
+    walls = {}
+    t0 = time.perf_counter()
+    run_detection(net, img_dir, weak, batch_size=BATCH, fmt="txt",
+                  device=dev)
+    walls["detect_weak"] = time.perf_counter() - t0
+    strong_net = hidden_net(dev, img_dir, 2)
+    run_detection(strong_net, img_dir, strong, batch_size=BATCH, fmt="txt",
+                  device=dev)
+    del strong_net
+    write_labels(strong, labels, HIDDEN_LABELS)
+    reward = out("rewards", f"orie{ORIE_E}.npz")
+    steps = [
+        ("reward", crw, [weak, strong, labels, out("rewards"), "--method",
+                         "orie", "--num-ensemble", str(ORIE_E)]),
+        ("dataset_split", cs, [labels, out("split.npy")]),
+        ("regression_CNN_s23_r8", cr, [
+            feat, reward, out("split.npy"), out("est"), "--stage", "23",
+            "--resize", str(ROI_P), "--model", "CNN", "--model-dir",
+            out("wts")]),
+        ("test", ct, [weak, strong, labels, out("split.npy"), out("test"),
+                      "--estimates", out("est_best")]),
+    ]
+    cwd = os.getcwd()
+    cnn_opt = cr.CNNOpt
+    cr.CNNOpt = lambda: cnn_cut(cnn_opt)
+    os.chdir(out())  # the CNN's loss figures land in the working directory
+    try:
+        for tag, mod, argv in steps:
+            t0 = time.perf_counter()
+            quiet(lambda: mod.main(mod.getargs(argv)))
+            walls[tag] = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        cr.CNNOpt = cnn_opt
+    n = len(os.listdir(img_dir))
+    r = np.load(reward)["reward"]
+    split = np.load(out("split.npy"))
+    if r.shape != (n,) or not np.isfinite(r).all() or \
+            split.shape != (EST_FOLDS, n):
+        fail(f"hidden CLI: rewards {r.shape} or split {split.shape}")
+    for d in (out("est_best"), out("est_last")):
+        for k, v in enumerate(split):
+            est = np.load(os.path.join(d, f"estimate{k + 1}.npz"))
+            if est["val_est"].shape != (int(v.sum()),) or \
+                    not np.isfinite(est["val_est"]).all():
+                fail(f"hidden CLI: bad estimates in {d}")
+    tm = np.load(out("test", "test_map.npy"))
+    if not (tm.shape == (1, 11) and np.isfinite(tm).all()):
+        fail(f"hidden CLI: test_map.npy {tm.shape}")
+    line("hidden_cli", images=n, stage=23, resize=ROI_P, folds=len(split),
+         cnn_epochs=CNN_EPOCHS,
+         **{f"{k}_s": f"{v:.2f}" for k, v in walls.items()},
+         reward_mean=f"{r.mean():.4f}", map_at_0=f"{tm[0, 0]:.4f}",
+         map_at_1=f"{tm[0, -1]:.4f}")
+    return weak, strong, labels
+
+
+def write_coco_tree(root, rng):
+    """A synthetic COCO annotation tree: val2017 with LABEL_COCO_IMAGES
+    images of LABEL_COCO_OBJECTS objects each, train2017 with
+    LABEL_COCO_TRAIN_IMAGES, COCO's 80 category ids."""
+    cat_ids = [i for i in range(1, 91) if i not in (
+        12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+    os.makedirs(os.path.join(root, "annotations"))
+    for split, n in (("val", LABEL_COCO_IMAGES),
+                     ("train", LABEL_COCO_TRAIN_IMAGES)):
+        w = rng.integers(200, 641, n)
+        h = rng.integers(200, 641, n)
+        images = [{"id": int(i), "file_name": f"{i:012d}.jpg",
+                   "width": int(w[i]), "height": int(h[i])} for i in range(n)]
+        m = n * LABEL_COCO_OBJECTS
+        img = np.repeat(np.arange(n), LABEL_COCO_OBJECTS)
+        bw = rng.uniform(0.05, 0.5, m) * w[img]
+        bh = rng.uniform(0.05, 0.5, m) * h[img]
+        bx = rng.uniform(0, 1, m) * (w[img] - bw)
+        by = rng.uniform(0, 1, m) * (h[img] - bh)
+        cats = rng.choice(cat_ids, m)
+        anns = [{"id": j + 1, "image_id": int(img[j]),
+                 "category_id": int(cats[j]),
+                 "bbox": [round(float(bx[j]), 2), round(float(by[j]), 2),
+                          round(float(bw[j]), 2), round(float(bh[j]), 2)],
+                 "area": float(bw[j] * bh[j]), "iscrowd": 0}
+                for j in range(m)]
+        with open(os.path.join(root, "annotations",
+                               f"instances_{split}2017.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": [{"id": c} for c in cat_ids]}, f)
+    return cat_ids
+
+
+def write_voc_tree(root, rng):
+    """A small synthetic VOCdevkit: LABEL_VOC_IMAGES images in each of the
+    five splits, 1-4 objects an image, some difficult."""
+    from edgeml_tpu_torch.dataprep import VOC_CLASS_NAMES, VOC_SPLITS
+
+    for year, image_set in VOC_SPLITS:
+        dev = os.path.join(root, "VOCdevkit", f"VOC{year}")
+        os.makedirs(os.path.join(dev, "ImageSets", "Main"), exist_ok=True)
+        os.makedirs(os.path.join(dev, "Annotations"), exist_ok=True)
+        ids = [f"{year}_{image_set}_{i:04d}" for i in range(LABEL_VOC_IMAGES)]
+        with open(os.path.join(dev, "ImageSets", "Main",
+                               f"{image_set}.txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+        for img_id in ids:
+            objs = "".join(
+                f"<object><name>{rng.choice(VOC_CLASS_NAMES)}</name>"
+                f"<difficult>{int(rng.random() < 0.1)}</difficult><bndbox>"
+                f"<xmin>{x}</xmin><xmax>{x + 40}</xmax><ymin>{y}</ymin>"
+                f"<ymax>{y + 30}</ymax></bndbox></object>"
+                for x, y in rng.integers(1, 300, (int(rng.integers(1, 5)), 2)))
+            with open(os.path.join(dev, "Annotations", f"{img_id}.xml"),
+                      "w") as f:
+                f.write(f"<annotation><size><width>500</width><height>375"
+                        f"</height></size>{objs}</annotation>")
+
+
+def label_cli_phase(root):
+    """cli.label on a synthetic COCO tree (val2017's 5,000 images, 7 objects
+    each) and a small VOC tree: the file count, one file's rows against the
+    conversion done here by hand, the wall."""
+    from edgeml_tpu_torch.cli import label as cl
+
+    rng = np.random.default_rng(12)
+    coco, voc = os.path.join(root, "coco"), os.path.join(root, "voc")
+    cat_ids = write_coco_tree(coco, rng)
+    write_voc_tree(voc, rng)
+    walls = {}
+    for tag, data in (("coco", coco), ("voc", voc)):
+        t0 = time.perf_counter()
+        cl.main(cl.getargs([data, os.path.join(root, f"labels_{tag}"),
+                            "--dataset", tag]))
+        walls[tag] = time.perf_counter() - t0
+    val = os.path.join(root, "labels_coco", "val2017")
+    n_coco = len(os.listdir(val))
+    n_train = len(os.listdir(os.path.join(root, "labels_coco", "train2017")))
+    with open(os.path.join(coco, "annotations",
+                           "instances_val2017.json")) as f:
+        anno = json.load(f)
+    im = anno["images"][0]
+    want = [(cat_ids.index(a["category_id"]),
+             (a["bbox"][0] + a["bbox"][2] / 2) / im["width"],
+             (a["bbox"][1] + a["bbox"][3] / 2) / im["height"],
+             a["bbox"][2] / im["width"], a["bbox"][3] / im["height"])
+            for a in anno["annotations"] if a["image_id"] == im["id"]]
+    with open(os.path.join(val, im["file_name"].split(".")[0] + ".txt")) as f:
+        got = [tuple(float(v) for v in r.split()) for r in f.read().split(
+            "\n") if r]
+    n_voc = sum(len(os.listdir(os.path.join(root, "labels_voc", d)))
+                for d in os.listdir(os.path.join(root, "labels_voc")))
+    line("label_cli", coco_images=n_coco, coco_train_images=n_train,
+         coco_objects=len(anno["annotations"]), coco_wall_s=f"{walls['coco']:.2f}",
+         voc_images=n_voc, voc_wall_s=f"{walls['voc']:.2f}",
+         first_file_rows=len(got))
+    if not (n_coco == LABEL_COCO_IMAGES and n_train == LABEL_COCO_TRAIN_IMAGES
+            and n_voc == 5 * LABEL_VOC_IMAGES and got == want
+            and len(got) == LABEL_COCO_OBJECTS):
+        fail("label CLI: wrong file count or rows")
+
+
+def eval_coco_phase(dev, dirs):
+    """DetectionEvaluator over the [hidden_cli] detection files of both
+    detectors and its labels: style="greedy" on the card and on the CPU
+    (AP@[.5:.95], AP@.5 and AP@.75 bit-equal), then style="coco" once on
+    the strong detector's; the times of each."""
+    import torch
+
+    from edgeml_tpu_torch.data import io as tio
+    from edgeml_tpu_torch.eval_coco import DetectionEvaluator
+
+    weak, strong, labels = dirs
+    names = tio.list_image_names(labels)
+    gts = [g if len(g) else (np.zeros(0), np.zeros((0, 4)))
+           for g in tio.load_data(labels, names)]
+    out = {}
+    for tag, d in (("weak", weak), ("strong", strong)):
+        dets = [r if len(r) else (np.zeros(0), np.zeros((0, 4)), np.zeros(0))
+                for r in tio.load_data(d, names, True)]
+        res, ms = {}, {}
+        for where in ("cuda", "cpu", "cuda"):  # the first card run warms up
+            ev = DetectionEvaluator(device=where)
+            ev.update(dets, gts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[where] = ev.summarize(verbose=False)
+            ms[where] = (time.perf_counter() - t0) * 1e3
+        card, cpu = res["cuda"], res["cpu"]
+        if not all(card[k] == cpu[k] for k in ("map", "map50", "map75")):
+            fail(f"eval_coco: the card's greedy APs of the {tag} detector "
+                 f"differ from the CPU's")
+        out.update({f"{tag}_dets": sum(len(r[0]) for r in dets),
+                    f"{tag}_map": f"{card['map']:.6f}",
+                    f"{tag}_map50": f"{card['map50']:.6f}",
+                    f"{tag}_map75": f"{card['map75']:.6f}",
+                    f"{tag}_card_ms": f"{ms['cuda']:.1f}",
+                    f"{tag}_cpu_ms": f"{ms['cpu']:.1f}"})
+    ev = DetectionEvaluator(style="coco")
+    ev.update(dets, gts)
+    t0 = time.perf_counter()
+    coco = ev.summarize(verbose=False)
+    coco_ms = (time.perf_counter() - t0) * 1e3
+    line("eval_coco", images=len(names), labels=sum(len(g[0]) for g in gts),
+         **out, card_equals_cpu=True, coco_strong_map=f"{coco['map']:.6f}",
+         coco_strong_map50=f"{coco['map50']:.6f}", coco_ms=f"{coco_ms:.1f}")
+    if not (0 < float(out["strong_map"]) <= float(out["strong_map50"]) <= 1
+            and 0 < coco["map"] <= 1):
+        fail("eval_coco: the strong detector's APs out of range")
+
 
 if __name__ == "__main__":
     if sys.argv[1:] not in ([], ["--kernels-only"]):

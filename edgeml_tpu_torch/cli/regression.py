@@ -7,8 +7,10 @@ The same positional arguments and flags as the JAX package's
 ``regression.py``, plus ``--device`` (default ``cuda``). Writes
 ``estimate{k}.npz`` per fold ({SAVE_DIR}_best and _last for the CNN) and,
 with ``--model-dir``, ``wts{k}.pickle`` (``wts{k}.npz`` under _best / _last
-for the CNN). RoI-pooled hidden-stage features (``--resize`` > 0 with
-``--stage`` != 24) are not ported yet and exit.
+for the CNN). A hidden ``--stage`` (0-23) takes the CNN only: with
+``--resize 0`` its raw maps of varying shape, one image a batch and no
+BatchNorm; with ``--resize P`` its maps RoI-pooled to (P, P) on the device
+(``load_feature(pool=True)``), at the CNN's default batch with BatchNorm.
 """
 
 from __future__ import annotations
@@ -35,10 +37,9 @@ def rank_normalize(train_reward: np.ndarray, val_reward: np.ndarray):
 
 def main(opts):
     dev = estimator_device(opts.device)
-    if opts.resize > 0 and opts.stage != 24:
-        raise SystemExit("--resize > 0 with a hidden --stage (RoI-pooled "
-                         "feature maps) is not yet ported")
-    feature_data = load_feature(opts.data_dir, opts.stage, pool=False)
+    ifpool = opts.resize > 0 and opts.stage != 24
+    feature_data = load_feature(opts.data_dir, opts.stage, pool=ifpool,
+                                size=opts.resize, device=dev)
     reward_data = np.load(opts.reward_path)["reward"]
     assert len(feature_data) == len(reward_data), \
         "Inconsistent number of feature maps and offloading rewards."
@@ -58,9 +59,11 @@ def main(opts):
     if opts.stage != 24:
         assert opts.model == "CNN", \
             "Only fully convolutional NN can take feature maps from hidden layers as inputs."
-        # raw hidden maps: per-image batches of varying shape, no BatchNorm
-        cnn_opts.resize = False
-        cnn_opts.batch_size = 1
+        if opts.resize == 0:
+            # raw hidden maps: per-image batches of varying shape, no
+            # BatchNorm
+            cnn_opts.resize = False
+            cnn_opts.batch_size = 1
     if opts.model == "CNN":
         cnn_opts.weight = opts.weight and opts.normalize
         if opts.stage != 24 and not cnn_opts.channels:

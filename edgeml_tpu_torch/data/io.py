@@ -22,6 +22,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.metrics import box_correct
+from ..ops.roi import roi_resize_batch
 from . import fastio
 
 # Stage names of YOLOv5 detectors, used in feature-map file names.
@@ -179,23 +180,41 @@ def set_data(weak: str, strong: str, label: str,
 
 
 def load_feature(path: str, stage: int, pool: bool = True,
-                 batch_size: int = 128, func: str = "avg", size: int = 8):
+                 batch_size: int = 128, func: str = "avg", size: int = 8,
+                 device=None):
     """Per-image feature maps ``{img}/stage{S}_{Name}_features.npy`` of every
-    image directory under ``path``, in sorted order: the stage-24 output
-    features (num_class + 5k,) or a hidden stage's raw (C, H, W) maps.
+    image directory under ``path``, in sorted order.
 
-    ``pool=True`` (RoI-resizing hidden maps to ``size``) needs
-    ``ops/roi.py``, which is not ported yet, and raises.
+    With ``pool=False``: a list of the stage-24 output features
+    (num_class + 5k,) or a hidden stage's raw (C, H, W) maps. With
+    ``pool=True``: each (C, h, w) map square-padded top-left and RoI-resized
+    to (size, size) by ``ops/roi.py`` (``func`` "avg": roi_align, "max":
+    roi_pool), ``batch_size`` images a call on ``device`` (the CUDA device
+    unless "cpu" is asked for); one (N, C, size, size) f32 array, or
+    ``np.zeros((0,))`` when there is no image.
     """
-    if pool:
-        raise NotImplementedError(
-            "load_feature(pool=True) (RoI-resized hidden-stage maps) is not "
-            "yet ported")
     images = sorted(
         f for f in os.listdir(path) if not os.path.isfile(os.path.join(path, f))
     )
     name = f"stage{stage}_{V5_STAGE_NAMES[stage]}_features.npy"
-    return [np.load(os.path.join(path, img, name)) for img in images]
+    if not pool:
+        return [np.load(os.path.join(path, img, name)) for img in images]
+    dev = resolve_device(device)
+    out = []
+    for s in range(0, len(images), batch_size):
+        feats, sizes = [], []
+        for img in images[s: s + batch_size]:
+            fm = np.load(os.path.join(path, img, name))  # (C, H, W)
+            c, h, w = fm.shape
+            side = max(h, w)
+            padded = np.zeros((c, side, side), fm.dtype)
+            padded[:, :h, :w] = fm
+            feats.append(padded)
+            sizes.append((h, w))
+        out.append(roi_resize_batch(np.stack(feats),
+                                    np.array(sizes, np.float32), size, func,
+                                    device=dev))
+    return np.concatenate(out) if out else np.zeros((0,))
 
 
 def extract_output_feature(output_path: str, feature_path: str,

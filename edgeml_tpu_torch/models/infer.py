@@ -22,6 +22,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..data.io import V5_STAGE_NAMES
 from ..data.loader import iter_batches, list_images, resize_bilinear
 from ..device import exact_f32_cuda, resolve_device
 from ..ops.nms import nms_split_batch
@@ -227,3 +228,42 @@ def run_detection(
                 net, torch.from_numpy(arr).to(dev), conf_thres, iou_thres,
                 dtype=dtype)
         save_batch(chunk_names, dets.cpu().numpy(), valid.cpu().numpy())
+
+
+def dump_features(
+    net: YoloV5,
+    img_dir: str,
+    save_dir: str,
+    stages=(9, 17, 20, 23),
+    img_size: int = 640,
+    device=None,
+):
+    """Save YOLOv5 hidden-stage feature maps per image, the file format the
+    estimators read (``data/io.py load_feature``):
+    ``{save_dir}/{stem}/stage{S}_{Name}_features.npy``, f32 (C, H, W), the
+    stem being the file name without its last extension.
+
+    One letterboxed image per forward, as the JAX package's ``dump_features``
+    runs them. The net is moved to ``device`` (in place): the CUDA device
+    unless "cpu" is asked for; f32 with TF32 off.
+    """
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        exact_f32_cuda()
+    net.to(dev).eval()
+    stages = tuple(stages)
+    names = list_images(img_dir)
+
+    def make_batch(items):
+        (name, img), = items
+        lb, _ = letterbox_batch([img], img_size)
+        return name, lb
+
+    for name, lb in iter_batches(img_dir, names, 1, make_batch):
+        taps = net.taps(torch.from_numpy(lb).to(dev), stages)
+        stem = ".".join(name.split(".")[:-1]) or name
+        out = Path(save_dir) / stem
+        out.mkdir(parents=True, exist_ok=True)
+        for s_idx in stages:
+            np.save(out / f"stage{s_idx}_{V5_STAGE_NAMES[s_idx]}_features.npy",
+                    taps[s_idx][0].cpu().numpy())

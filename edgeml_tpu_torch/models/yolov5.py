@@ -208,8 +208,9 @@ class YoloV5(nn.Module):
 
     # ---- forward -----------------------------------------------------------
 
-    def trunk(self, x):
-        """Backbone + neck walk; returns the HEAD_STAGES outputs (NCHW)."""
+    def _walk(self, x):
+        """Backbone + neck walk; returns every stage's output (NCHW) by
+        stage index 0..23."""
         outputs = {}
         y = x
         for idx, kind, src, _ in self.layers():
@@ -222,7 +223,29 @@ class YoloV5(nn.Module):
             else:
                 raise ValueError(f"unknown layer kind {kind!r}")
             outputs[idx] = y
+        return outputs
+
+    def trunk(self, x):
+        """Backbone + neck walk; returns the HEAD_STAGES outputs (NCHW)."""
+        outputs = self._walk(x)
         return [outputs[i] for i in HEAD_STAGES]
+
+    @torch.no_grad()
+    def taps(self, x, stages):
+        """Hidden-stage feature maps: {stage: (B, C, H, W) activation} for
+        each requested stage index 0..23 (``data/io.py V5_STAGE_NAMES``
+        numbering), in the input's dtype and on its device.
+
+        :param x: (B, S, S, 3) float images in [0, 1], NHWC as the loader
+            produces them.
+        """
+        stages = tuple(stages)
+        bad = [s for s in stages if not 0 <= s <= HEAD_STAGES[-1]]
+        if bad:
+            raise ValueError(f"tap stages must lie in 0..{HEAD_STAGES[-1]}, "
+                             f"not {bad}")
+        outputs = self._walk(x.permute(0, 3, 1, 2))
+        return {s: outputs[s] for s in stages}
 
     @torch.no_grad()
     def predict(self, x, dtype: torch.dtype | None = None):

@@ -192,11 +192,33 @@ def test_regression_cli_cnn_options(dataset, tmp_path, monkeypatch):
         np.testing.assert_array_equal(seen[0][1], want)
 
 
-def test_regression_cli_pooled_hidden_stage_exits(dataset, tmp_path):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        treg.main(treg.getargs([dataset.feat, dataset.reward, dataset.split,
-                                str(tmp_path / "est"), "--stage", "17",
-                                "--resize", "8", "--device", "cpu"]))
+def test_regression_cli_pooled_hidden_stage_exits(dataset, tmp_path,
+                                                  monkeypatch):
+    """--resize > 0 with a hidden --stage no longer exits "not yet ported":
+    the maps are RoI-pooled and reach the CNN at its default batch with
+    BatchNorm (test_torch_port_hidden_features.py holds the route against
+    the JAX CLI)."""
+    root = tmp_path / "feat"
+    rng = np.random.default_rng(2)
+    for i in range(N_IMG):
+        (root / f"img{i:03d}").mkdir(parents=True)
+        np.save(root / f"img{i:03d}" / "stage17_C3_features.npy",
+                rng.random((4, 6, 5)).astype(np.float32))
+    seen = []
+
+    def fake_fit(data, opts, save_opts, device=None):
+        seen.append((opts.resize, opts.batch_size, np.asarray(data[0]).shape))
+        r = {"train_est": np.zeros(len(data[2]), np.float32),
+             "val_est": np.zeros(len(data[3]), np.float32),
+             "train_time": 0.0, "val_time": 0.0}
+        return r, r
+
+    monkeypatch.setattr(treg, "fit_CNN", fake_fit)
+    treg.main(treg.getargs([str(root), dataset.reward, dataset.split,
+                            str(tmp_path / "est"), "--stage", "17",
+                            "--resize", "8", "--device", "cpu"]))
+    n_train = int((~np.load(dataset.split)[0]).sum())
+    assert len(seen) == 3 and seen[0] == (True, 64, (n_train, 4, 8, 8))
 
 
 def _base_args(ds, save, baseline, model_dir):

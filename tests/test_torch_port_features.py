@@ -137,8 +137,15 @@ def test_load_feature_stage24_and_raw_maps(tmp_path):
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and a.shape == b.shape
             np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tio.load_feature(str(root), 17, pool=True, size=4)
+    # pool=True RoI-resizes the hidden maps (test_torch_port_roi.py and
+    # test_torch_port_hidden_features.py hold it against the JAX package);
+    # maps of several longest sides go one image a batch
+    got = tio.load_feature(str(root), 17, pool=True, size=4, batch_size=1,
+                           device="cpu")
+    want = jio.load_feature(str(root), 17, pool=True, size=4, batch_size=1)
+    assert got.shape == want.shape == (5, 8, 4, 4)
+    assert float(np.abs(got - want).max()) <= 1e-6 * float(
+        np.abs(want).max())
 
 
 @pytest.mark.parametrize("path", ["", "est", "out/est", "out/est/",

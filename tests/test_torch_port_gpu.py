@@ -1112,3 +1112,113 @@ def test_estimator_clis_on_cuda(cuda, tmp_path):
             for key in ("train_est", "val_est"):
                 scale = float(np.abs(b[key]).max())
                 assert float(np.abs(a[key] - b[key]).max()) <= tol * scale
+
+
+# ---- hidden-stage features and the COCO evaluator --------------------------
+
+
+def _padded_batch(seed, c, s, b=16):
+    """Square-padded maps with ragged (h, w), content top-left, as
+    load_feature builds them."""
+    rng = np.random.default_rng(seed)
+    sizes = np.stack([rng.integers(1, s + 1, b), rng.integers(1, s + 1, b)],
+                     1).astype(np.float32)
+    sizes[0] = s
+    f = np.zeros((b, c, s, s), np.float32)
+    for i, (h, w) in enumerate(sizes.astype(int)):
+        f[i, :, :h, :w] = rng.normal(size=(c, h, w))
+    return f, sizes
+
+
+@pytest.mark.parametrize("c,s,p", [(64, 80, 8), (256, 20, 8), (128, 40, 1),
+                                   (16, 7, 13)])
+def test_roi_resize_card_vs_cpu(cuda, c, s, p):
+    """max bit-equal; avg within 1e-6 of the call's largest value."""
+    from edgeml_tpu_torch.ops.roi import roi_resize_batch
+
+    f, sizes = _padded_batch(c + s + p, c, s)
+    for func in ("max", "avg"):
+        card = roi_resize_batch(f, sizes, p, func)
+        cpu = roi_resize_batch(f, sizes, p, func, device="cpu")
+        assert card.shape == cpu.shape == (len(f), c, p, p)
+        if func == "max":
+            np.testing.assert_array_equal(card, cpu)
+        else:
+            assert float(np.abs(card - cpu).max()) <= 1e-6 * float(
+                np.abs(cpu).max())
+
+
+def test_load_feature_pooled_on_cuda(cuda, tmp_path):
+    from edgeml_tpu_torch.data import io as tio
+
+    rng = np.random.default_rng(3)
+    for i in range(7):
+        d = tmp_path / f"img{i}"
+        d.mkdir()
+        h, w = (20, 15) if i % 2 else (12, 20)
+        np.save(d / "stage23_C3_features.npy",
+                rng.normal(size=(32, h, w)).astype(np.float32))
+    for func in ("max", "avg"):
+        card = tio.load_feature(str(tmp_path), 23, func=func, batch_size=3)
+        cpu = tio.load_feature(str(tmp_path), 23, func=func, batch_size=3,
+                               device="cpu")
+        assert card.shape == (7, 32, 8, 8)
+        tol = 0.0 if func == "max" else 1e-6 * float(np.abs(cpu).max())
+        assert float(np.abs(card - cpu).max()) <= tol
+
+
+def test_dump_features_card_vs_cpu(cuda, tmp_path):
+    """dump_features of a seeded full-width YOLOv5n at 640 on the card
+    against the CPU: the same files, each map within 1e-4 of its largest
+    value."""
+    from edgeml_tpu_torch.models.infer import dump_features
+    from edgeml_tpu_torch.models.yolov5 import YoloV5
+
+    rng = np.random.default_rng(4)
+    (tmp_path / "img").mkdir()
+    for i, (h, w) in enumerate([(480, 640), (640, 427)]):
+        np.save(tmp_path / "img" / f"im{i}.npy",
+                (rng.random((h, w, 3)) * 255).astype(np.uint8))
+    net = YoloV5(num_classes=80, img_size=640,
+                 generator=torch.Generator().manual_seed(0))
+    dump_features(net, str(tmp_path / "img"), str(tmp_path / "card"))
+    dump_features(net.cpu(), str(tmp_path / "img"), str(tmp_path / "cpu"),
+                  device="cpu")
+    names = sorted(os.listdir(tmp_path / "cpu" / "im0"))
+    assert names == sorted(os.listdir(tmp_path / "card" / "im0")) and \
+        len(names) == 4
+    for im in ("im0", "im1"):
+        for n in names:
+            a = np.load(tmp_path / "card" / im / n)
+            b = np.load(tmp_path / "cpu" / im / n)
+            assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
+            assert float(np.abs(a - b).max()) <= 1e-4 * float(
+                np.abs(b).max()), (im, n)
+    assert np.load(tmp_path / "card" / "im0" /
+                   "stage17_C3_features.npy").shape == (64, 80, 80)
+
+
+def test_detection_evaluator_greedy_card_equals_cpu(cuda):
+    """The greedy style's APs on the card equal the CPU's bit for bit."""
+    from edgeml_tpu_torch.eval_coco import DetectionEvaluator
+
+    rng = np.random.default_rng(5)
+    dets, gts = [], []
+    for _ in range(300):
+        m, n = int(rng.integers(1, 6)), int(rng.integers(0, 12))
+        g_xy = rng.uniform(0, 400, (m, 2))
+        g = np.concatenate([g_xy, g_xy + rng.uniform(10, 200, (m, 2))], 1)
+        gts.append((rng.integers(0, 20, m), g))
+        pick = rng.integers(0, m, n)
+        d = g[pick] + rng.normal(0, 15, (n, 4))
+        cls = np.where(rng.random(n) < 0.8, gts[-1][0][pick],
+                       rng.integers(0, 20, n))
+        dets.append((cls, d, rng.uniform(0.05, 1.0, n)))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        ev = DetectionEvaluator(device=dev)
+        ev.update(dets, gts)
+        res[dev] = ev.summarize(verbose=False)
+    np.testing.assert_array_equal(res["cuda"]["per_iou"],
+                                  res["cpu"]["per_iou"])
+    assert res["cuda"]["map"] == res["cpu"]["map"] > 0

@@ -38,7 +38,9 @@ def test_import_pulls_in_no_jax():
               "estimators.linear", "estimators.trees", "estimators.nn",
               "estimators.train_cnn", "estimators.plotting",
               "estimators.baselines", "cli.dataset_split",
-              "cli.extract_feature", "cli.regression", "cli.baseline"):
+              "cli.extract_feature", "cli.regression", "cli.baseline",
+              "dataprep.labels", "dataprep.coco_dataset", "ops.roi",
+              "coco_matching", "eval_coco", "cli.label"):
         assert "edgeml_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

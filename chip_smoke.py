@@ -42,7 +42,15 @@ what comes out:
     chain detection -> labels -> reward -> split -> regression (the CNN on
     stage 23 RoI-pooled to 8) -> test through the CLIs, the label CLI on a
     synthetic 5,000-image COCO tree and a VOC tree, and the COCO evaluator
-    (greedy card against CPU bit for bit, and the COCOeval style).
+    (greedy card against CPU bit for bit, and the COCOeval style);
+  * training: YOLOv5n (80 classes, 640) and SSDLite320 (21 classes) at
+    batch 32, f32 and bf16 (one step against the CPU's from the same
+    weights, the step's stages timed, 30 steps on a fixed batch with the
+    loss falling), the train CLI over the 256 images with seeded labels
+    (--preset yolo --augment yolo --ema) to a checkpoint the detect CLI
+    serves, and the training engine's ``evaluate`` on the card against the
+    CPU through the suppressor and gather kernels, whose launches there
+    the kernel record carries as ``train_eval_launches``.
 
 Before the serving paths, each kernel is held against its plain version
 bit for bit and timed (``kernel_ms`` looped, ``device_ms`` from a CUDA
@@ -741,6 +749,9 @@ def main(kernels_only=False):
         reward_phases(dev, tmp)
         records.append(estimator_phases(dev, tmp))
         hidden_phases(dev, tmp, img_dir)
+        train_launches = train_phases(dev, tmp, img_dir, shapes)
+        for rec in records:
+            rec["train_eval_launches"] = train_launches.get(rec["name"], 0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     line("wall", script_s=f"{time.perf_counter() - start:.1f}")
@@ -3342,6 +3353,488 @@ def eval_coco_phase(dev, dirs):
     if not (0 < float(out["strong_map"]) <= float(out["strong_map50"]) <= 1
             and 0 < coco["map"] <= 1):
         fail("eval_coco: the strong detector's APs out of range")
+
+
+TRAIN_BATCH = 32
+TRAIN_SIZE = {"yolo": 640, "ssd": 320}  # YOLOv5n's letterbox, SSDLite320's
+TRAIN_STEPS = 30  # steps on one fixed batch: the loss must fall
+TRAIN_SPLIT_FROM = 10  # steps whose stage times are averaged
+TRAIN_LR = 0.01
+TRAIN_CPU_BATCH = {"yolo": 2, "ssd": 8}
+# one step, card against CPU, from the same weights: the loss sees the
+# same parameters (the forward's rounding only); the step's update carries
+# the gradients' rounding, held as the norm of the difference over the norm
+# of the CPU's update, the whole model at once, each family at its own
+# limit: YOLOv5n read 5.2e-05, SSDLite (batch 8) 1.8e-03 on an NVIDIA H100
+# 80GB HBM3 at 700 W, its BatchNorms on 1x1 maps ill-conditioned and their
+# rounding reaching every gradient behind them; the new BatchNorm
+# statistics the batch moments' rounding. The same step with TF32 on is the control:
+# the limits must catch it.
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_UPDATE_TOL = {"yolo": 1e-3, "ssd": 1e-2}
+TRAIN_STATS_TOL = 1e-4
+TRAIN_CLI_BATCH = 16
+EVAL_IMAGES = 32
+# the trained checkpoint is served at this threshold: after one epoch
+# YOLOv5n scores about 1e-5 (its objectness and class priors)
+SERVE_CONF = 1e-6
+EVAL_AP_TOL = 3e-5
+# the trained net's scores, card against CPU, relative to each score
+TRAINED_SCORE_TOL = 1e-5
+TIE_TOP = 100  # the top candidates an image whose score gaps are read
+
+
+def train_targets(rng, b, t=8):
+    """(B, t, 5) seeded [cls, x, y, w, h] rows, 1 to t a image, and their
+    validity."""
+    tg = np.zeros((b, t, 5), np.float32)
+    valid = np.zeros((b, t), bool)
+    for i in range(b):
+        k = int(rng.integers(1, t + 1))
+        wh = rng.uniform(0.05, 0.5, (k, 2))
+        xy = rng.uniform(wh / 2, 1 - wh / 2)
+        tg[i, :k, 0] = rng.integers(0, 20, k)
+        tg[i, :k, 1:3], tg[i, :k, 3:5] = xy, wh
+        valid[i, :k] = True
+    return tg, valid
+
+
+def train_inputs(img_dir, family):
+    """The first TRAIN_BATCH serving images as the family trains on them
+    (YOLOv5: 640 letterbox; SSDLite: 320 square resize, normalised) and
+    seeded targets."""
+    from edgeml_tpu_torch.data.loader import decode_image
+    from edgeml_tpu_torch.models.common import letterbox_batch
+    from edgeml_tpu_torch.models.infer import square_batch
+
+    names = sorted(os.listdir(img_dir))[:TRAIN_BATCH]
+    imgs = [decode_image(os.path.join(img_dir, n)) for n in names]
+    size = TRAIN_SIZE[family]
+    x = letterbox_batch(imgs, size)[0] if family == "yolo" \
+        else square_batch(imgs, size)
+    tg, valid = train_targets(np.random.default_rng(11), TRAIN_BATCH)
+    return x, tg, valid
+
+
+def step_errors(net_g, net_c, before, losses):
+    """(loss, update norm, largest update, stats) errors of the card's step
+    against the CPU's, and the parameter of the largest update error."""
+    l_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    s_err = u_max = big = sq_diff = sq_upd = 0.0
+    worst = ""
+    for (k, a), b in zip(net_g.state_dict().items(),
+                         net_c.state_dict().values()):
+        if not a.is_floating_point():
+            continue
+        d = (a.cpu() - b).double()
+        err = float(d.abs().max())
+        if "running" in k:
+            s_err = max(s_err, err / max(float(b.abs().max()), 1.0))
+            continue
+        upd = (b - before[k]).double()
+        sq_diff += float((d * d).sum())
+        sq_upd += float((upd * upd).sum())
+        big = max(big, float(upd.abs().max()))
+        if err > u_max:
+            u_max, worst = err, k
+    return l_err, math.sqrt(sq_diff / sq_upd), u_max / big, s_err, worst
+
+
+def train_step_vs_cpu(tag, family, make_net, x, tg, valid, dev):
+    """One SGD step on the card and on the CPU from the same weights, held
+    to the family's limits; then the control: the card's step with TF32 on,
+    which the limits must catch."""
+    import torch
+
+    from edgeml_tpu_torch.device import exact_f32_cuda
+    from edgeml_tpu_torch.models.engine import make_family_train_step
+    from edgeml_tpu_torch.models.train import TrainConfig
+
+    net_c = make_net()
+    before = {k: v.clone() for k, v in net_c.state_dict().items()}
+    nets_g = {"f32": copy.deepcopy(net_c).to(dev),
+              "tf32": copy.deepcopy(net_c).to(dev)}
+    losses = {}
+    for where, net in (("f32", nets_g["f32"]), ("tf32", nets_g["tf32"]),
+                       ("cpu", net_c)):
+        torch.backends.cuda.matmul.allow_tf32 = where == "tf32"
+        torch.backends.cudnn.allow_tf32 = where == "tf32"
+        _, step = make_family_train_step(net, TrainConfig(lr=TRAIN_LR))
+        loss, _ = step(*(torch.from_numpy(a).to(net_device(net))
+                         for a in (x, tg, valid)), TRAIN_LR)
+        losses[where] = float(loss)
+    exact_f32_cuda()
+    u_tol = TRAIN_UPDATE_TOL[family]
+    tol = (f"loss {TRAIN_LOSS_TOL:g}, update norm {u_tol:g}, "
+           f"stats {TRAIN_STATS_TOL:g}")
+    passed = {}
+    for mode, net_g in nets_g.items():
+        l_err, u_err, u_max, s_err, worst = step_errors(
+            net_g, net_c, before, {"cuda": losses[mode], "cpu": losses["cpu"]})
+        passed[mode] = (l_err <= TRAIN_LOSS_TOL and u_err <= u_tol
+                        and s_err <= TRAIN_STATS_TOL)
+        line(f"{tag}_step_vs_cpu" + ("" if mode == "f32" else "_tf32_control"),
+             batch=len(x), loss=f"{losses['cpu']:.6f}",
+             loss_rel_err=f"{l_err:.3e}", update_norm_err=f"{u_err:.3e}",
+             update_max_err=f"{u_max:.3e}", worst_param=worst,
+             stats_err=f"{s_err:.3e}", tol=tol, within=passed[mode])
+    if not passed["f32"]:
+        fail(f"{tag}: the card's train step disagrees with the CPU's")
+    if passed["tf32"]:
+        fail(f"{tag}: the limits do not tell the step with TF32 on from the "
+             f"f32 step")
+
+
+def net_device(net):
+    return next(net.parameters()).device
+
+
+def train_family_phase(tag, make_net, x, tg, valid, dev):
+    """[train_yolo] / [train_ssd]: one step card against CPU, then per dtype
+    (f32, bf16) TRAIN_STEPS SGD steps with the EMA on one fixed batch: the
+    loss must fall; each step's stage times (forward, loss, backward,
+    optimiser, EMA) from CUDA events, img/s, peak GiB."""
+    import torch
+
+    from edgeml_tpu_torch.models.engine import make_family_train_step
+    from edgeml_tpu_torch.models.train import ModelEMA, TrainConfig
+
+    nb = TRAIN_CPU_BATCH[tag]
+    train_step_vs_cpu(f"train_{tag}", tag, make_net, x[:nb], tg[:nb],
+                      valid[:nb], dev)
+    xd, tgd, vd = (torch.from_numpy(a).to(dev) for a in (x, tg, valid))
+    for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        net = make_net().to(dev)
+        _, step = make_family_train_step(net, TrainConfig(lr=TRAIN_LR),
+                                         dtype=dtype)
+        ema = ModelEMA(net)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, split = [], []
+        t0 = time.perf_counter()
+        for it in range(TRAIN_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            net.train()
+            ev[0].record()
+            pred = step.forward(xd)
+            ev[1].record()
+            total, _ = step.loss(pred, tgd, vd)
+            ev[2].record()
+            grads = step.grads(total)
+            ev[3].record()
+            step.opt.step(grads, TRAIN_LR)
+            ev[4].record()
+            ema.update(net)
+            ev[5].record()
+            torch.cuda.synchronize()
+            losses.append(float(total.detach()))
+            if it == 0:
+                first_s = time.perf_counter() - t0
+            if it >= TRAIN_SPLIT_FROM:
+                split.append([ev[i].elapsed_time(ev[i + 1])
+                              for i in range(5)])
+        wall = time.perf_counter() - t0
+        ms = np.mean(split, axis=0)
+        step_ms = float(ms.sum())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        line(f"train_{tag}_{label}", batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+             loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
+             step_ms=f"{step_ms:.3f}", forward_ms=f"{ms[0]:.3f}",
+             loss_ms=f"{ms[1]:.3f}", backward_ms=f"{ms[2]:.3f}",
+             optimizer_ms=f"{ms[3]:.3f}", ema_ms=f"{ms[4]:.3f}",
+             device_img_s=f"{TRAIN_BATCH / step_ms * 1e3:.1f}",
+             wall_img_s=f"{TRAIN_BATCH * TRAIN_STEPS / wall:.1f}",
+             first_step_s=f"{first_s:.2f}", peak_gib=f"{peak:.2f}")
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fail(f"train_{tag} {label}: the loss did not fall on a fixed "
+                 f"batch ({losses[0]:.4f} -> {losses[-1]:.4f})")
+        del net, ema, step, grads, pred, total
+        torch.cuda.empty_cache()
+
+
+def write_train_labels(img_dir, lab_dir):
+    """Seeded YOLO label files for the serving images (1 to 8 objects)."""
+    os.makedirs(lab_dir)
+    rng = np.random.default_rng(12)
+    for n in sorted(os.listdir(img_dir)):
+        tg, valid = train_targets(rng, 1)
+        rows = tg[0][valid[0]]
+        with open(os.path.join(lab_dir, n.rsplit(".", 1)[0] + ".txt"),
+                  "w") as f:
+            f.writelines(f"{int(r[0])} {r[1]:.6f} {r[2]:.6f} {r[3]:.6f} "
+                         f"{r[4]:.6f}\n" for r in rows)
+
+
+def train_cli_phase(dev, root, img_dir, shapes):
+    """[train_cli]: the train CLI over the 256 serving images with seeded
+    labels (--preset yolo --augment yolo --ema, one epoch at batch 16, the
+    HSV jitter on the card): the loader's time a batch on one thread, the
+    CLI loop's wait for each batch and its step, the card's step alone and
+    its share of the CLI's time a step (host-bound below one half); then
+    the detect CLI serves the checkpoint (its EMA) into per-image files.
+    Returns the CLI's result."""
+    import torch
+
+    from edgeml_tpu_torch.cli import detect as detect_cli
+    from edgeml_tpu_torch.cli import train as train_cli
+    from edgeml_tpu_torch.data.loader import decode_image
+    from edgeml_tpu_torch.data.yolo_aug import yolo_augment_batch
+    from edgeml_tpu_torch.data.io import load_data
+    from edgeml_tpu_torch.models.engine import make_family_train_step
+    from edgeml_tpu_torch.models.train import pad_targets, yolo_recipe_config
+
+    lab_dir = os.path.join(root, "labels")
+    write_train_labels(img_dir, lab_dir)
+    save = os.path.join(root, "ckpt")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = train_cli.main(train_cli.getargs(
+            [img_dir, save, "--label-dir", lab_dir, "--model", "yolov5n",
+             "--dataset", "coco", "-b", str(TRAIN_CLI_BATCH), "--epochs",
+             "1", "--preset", "yolo", "--augment", "yolo", "--ema",
+             "--img-size", str(TRAIN_SIZE["yolo"])]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = N_IMAGES // TRAIN_CLI_BATCH
+    if sorted(os.listdir(save)) != ["checkpoint.pth", "model_0.pth"] or \
+            not np.isfinite(res["epoch_loss"][0]) or \
+            res["ema"].n_updates != steps:
+        fail("train_cli: wrong checkpoint files, loss or EMA updates")
+    # the loader's work for one batch on one thread; the CLI's own loop: its
+    # wait for each batch (the loader's threads, the copy to the card and
+    # the jitter) and its step (update, EMA, the loss read back), medians
+    # over the epoch's steps; and the card's step alone at the same batch
+    names = sorted(os.listdir(img_dir))[:TRAIN_CLI_BATCH]
+    labs = load_data(lab_dir, [n.rsplit(".", 1)[0] for n in names])
+    t1 = time.perf_counter()
+    ex = [(decode_image(os.path.join(img_dir, n)), lab)
+          for n, lab in zip(names, labs)]
+    t2 = time.perf_counter()
+    lb, rows, gains = yolo_augment_batch(ex, TRAIN_SIZE["yolo"], [0, 0, 0],
+                                         hsv="device")
+    tg, valid = pad_targets(rows, 64)
+    t3 = time.perf_counter()
+    meters = res["loggers"][0].meters
+    wait_ms = meters["data_time"].median * 1e3
+    cli_step_ms = meters["step_time"].median * 1e3
+    net = res["state"]
+    _, step = make_family_train_step(net, yolo_recipe_config(1))
+    xd, tgd, vd = (torch.from_numpy(a).to(dev) for a in (lb, tg, valid))
+    step_ms = cuda_ms(lambda: step(xd, tgd, vd, 1e-4), 5)
+    loader_ms = (t3 - t1) * 1e3
+    # the detect CLI on the checkpoint
+    out = os.path.join(root, "dets")
+    t4 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        detect_cli.main(detect_cli.getargs(
+            [img_dir, out, "--model", "yolov5n", "--model-path",
+             os.path.join(save, "checkpoint.pth"), "--batch-size", "64",
+             "--conf-thres", str(SERVE_CONF)]))
+    detect_s = time.perf_counter() - t4
+    if "EMA weights" not in said.getvalue():
+        fail("train_cli: the detect CLI did not serve the EMA weights")
+    n_rows = check_files(out, shapes, 80, SERVE_CONF)
+    if n_rows == 0:
+        fail("train_cli: the served checkpoint wrote no detections")
+    share = step_ms / (wall / steps * 1e3)
+    line("train_cli", images=N_IMAGES, batch=TRAIN_CLI_BATCH, steps=steps,
+         epoch_loss=f"{res['epoch_loss'][0]:.4f}", wall_s=f"{wall:.2f}",
+         e2e_step_ms=f"{wall / steps * 1e3:.1f}",
+         loader_ms_one_thread=f"{loader_ms:.1f}",
+         decode_ms=f"{(t2 - t1) * 1e3:.1f}",
+         augment_ms=f"{(t3 - t2) * 1e3:.1f}",
+         cli_wait_ms=f"{wait_ms:.1f}", cli_step_ms=f"{cli_step_ms:.1f}",
+         device_step_ms=f"{step_ms:.1f}", device_share=f"{share:.3f}",
+         host_bound=share < 0.5,
+         detect_s=f"{detect_s:.2f}", files=N_IMAGES, rows=n_rows)
+    return res
+
+
+def own_gt(net, images, family, k=3, conf=0.001):
+    """GT rows from a net's own top-k detections above ``conf``, nudged
+    (its APs are then neither 0 nor 1)."""
+    import torch
+
+    from edgeml_tpu_torch.models.common import letterbox_batch
+    from edgeml_tpu_torch.models.infer import (
+        _detect_generic, detect_batch, square_batch,
+    )
+
+    dev = net_device(net)
+    net.eval()
+    rows = []
+    for s in range(0, len(images), 16):
+        chunk = images[s:s + 16]
+        if family == "yolo":
+            lb, meta = letterbox_batch(chunk, net.img_size)
+            hw = np.array([im.shape[:2] for im in chunk], np.float32)
+            d, v = detect_batch(net, *(torch.from_numpy(a).to(dev)
+                                       for a in (lb, meta, hw)), conf, 0.5)
+        else:
+            d, v = _detect_generic(net, torch.from_numpy(
+                square_batch(chunk, net.image_size)).to(dev), conf, 0.5)
+        rows += [di[vi][:k, :5] for di, vi in zip(d.cpu().numpy(),
+                                                   v.cpu().numpy())]
+    rng = np.random.default_rng(13)
+    return [(r * np.r_[1, rng.uniform(0.97, 1.03, 4)]).astype(np.float32)
+            for r in rows]
+
+
+def train_eval_phase(dev, img_dir, trained):
+    """[train_eval]: the training engine's ``evaluate`` on the card and on
+    the CPU over EVAL_IMAGES serving images, GT from each net's own
+    detections, nudged, with the card's launch counts of the suppressors
+    and the gather. The serving phases' seeded YOLOv5n and SSDLite320: APs
+    within EVAL_AP_TOL. The train CLI's net (its EMA, as the detect CLI
+    serves it), which after one epoch scores every candidate near its
+    priors: its scores card against CPU within TRAINED_SCORE_TOL, the
+    gaps between its top scores against that difference, and its APs card
+    against CPU beside the CPU against itself with the stem's weights
+    scaled by one rounding (1 + 2^-23). Returns {kernel record name:
+    launches}."""
+    import torch
+
+    from edgeml_tpu_torch.data.loader import decode_image
+    from edgeml_tpu_torch.models.common import letterbox_batch
+    from edgeml_tpu_torch.models.engine import evaluate
+    from edgeml_tpu_torch.models.infer import square_batch
+
+    images = [decode_image(os.path.join(img_dir, n))
+              for n in sorted(os.listdir(img_dir))[:EVAL_IMAGES]]
+    calib = images[:16]
+    nets = {
+        "yolo": seeded_yolov5("n", 1, torch.from_numpy(
+            letterbox_batch(calib, 640)[0]).to(dev), dev),
+        "ssd": seeded_ssdlite(3, torch.from_numpy(
+            square_batch(calib, 320)).to(dev), dev),
+    }
+    launches = {}
+
+    def count(mono, blocked, gathers):
+        for name, n in (("nms_fused_greedy_keep", mono),
+                        ("nms_blocked_greedy_keep", blocked),
+                        ("gather_rows", gathers)):
+            launches[name] = launches.get(name, 0) + n
+
+    for family, net in nets.items():
+        gts = own_gt(net, images, family)
+        reset_counts()
+        t0 = time.perf_counter()
+        card = evaluate(net, images, gts, batch_size=16, conf_thres=0.001)
+        card_s = time.perf_counter() - t0
+        mono, blocked, _, gathers = counts()
+        t0 = time.perf_counter()
+        cpu = evaluate(copy.deepcopy(net).cpu(), images, gts, batch_size=16,
+                       conf_thres=0.001)
+        cpu_s = time.perf_counter() - t0
+        err = max(abs(card[k] - cpu[k]) for k in ("map", "map50", "map75"))
+        line(f"train_eval_{family}", images=EVAL_IMAGES,
+             map=f"{card['map']:.6f}", map50=f"{card['map50']:.6f}",
+             map75=f"{card['map75']:.6f}", max_ap_err=f"{err:.3e}",
+             tol=EVAL_AP_TOL, card_s=f"{card_s:.2f}", cpu_s=f"{cpu_s:.2f}",
+             nms_fused=mono, nms_blocked=blocked, gather=gathers)
+        if not (err <= EVAL_AP_TOL and 0 < card["map50"] <= 1):
+            fail(f"train_eval {family}: the card's APs disagree with the "
+                 f"CPU's or are out of range")
+        want = (mono > 0 and gathers > 0) if family == "yolo" \
+            else blocked > 0
+        if not want:
+            fail(f"train_eval {family}: evaluate did not launch the "
+                 f"suppressor and gather kernels ({mono}, {blocked}, "
+                 f"{gathers})")
+        count(mono, blocked, gathers)
+    trained_eval(dev, trained, images, count)
+    return launches
+
+
+def trained_eval(dev, net, images, count):
+    """The trained-net half of [train_eval] (see ``train_eval_phase``)."""
+    import torch
+
+    from edgeml_tpu_torch.models.common import letterbox_batch
+    from edgeml_tpu_torch.models.engine import evaluate
+
+    net = net.to(dev).eval()
+    net_c = copy.deepcopy(net).cpu()
+    lb = torch.from_numpy(letterbox_batch(images[:16], net.img_size)[0])
+    with torch.no_grad():
+        scores = {}
+        for where, m in (("cuda", net), ("cpu", net_c)):
+            obj, _, cls = m.predict(lb.to(net_device(m)).float() / 255.0)
+            scores[where] = (obj[..., None] * cls).amax(-1).cpu().double()
+    card, cpu = scores["cuda"], scores["cpu"]
+    score_err = float(((card - cpu).abs() / cpu.abs()).max())
+    top = torch.sort(cpu, dim=1, descending=True).values[:, :TIE_TOP]
+    spread = float(((top[:, 0] - top[:, -1]) / top[:, 0]).median())
+    gaps = (top[:, :-1] - top[:, 1:]) / top[:, :-1]
+    tie_share = float((gaps < score_err).double().mean())
+    gts = own_gt(net, images, "yolo", conf=SERVE_CONF)
+    reset_counts()
+    t0 = time.perf_counter()
+    ap = {"card": evaluate(net, images, gts, batch_size=16,
+                           conf_thres=SERVE_CONF)}
+    card_s = time.perf_counter() - t0
+    mono, blocked, _, gathers = counts()
+    ap["cpu"] = evaluate(net_c, images, gts, batch_size=16,
+                         conf_thres=SERVE_CONF)
+    with torch.no_grad():
+        next(net_c.parameters()).mul_(1 + 2.0 ** -23)
+    ap["nudged"] = evaluate(net_c, images, gts, batch_size=16,
+                            conf_thres=SERVE_CONF)
+    keys = ("map", "map50", "map75")
+    ap_err = max(abs(ap["card"][k] - ap["cpu"][k]) for k in keys)
+    nudge_err = max(abs(ap["nudged"][k] - ap["cpu"][k]) for k in keys)
+    line("train_eval_trained", images=len(images), conf=SERVE_CONF,
+         top_score=f"{float(top[:, 0].max()):.6e}",
+         top100_spread=f"{spread:.3e}", score_card_cpu_err=f"{score_err:.3e}",
+         score_tol=TRAINED_SCORE_TOL, tie_share=f"{tie_share:.3f}",
+         map=f"{ap['card']['map']:.6f}", map50=f"{ap['card']['map50']:.6f}",
+         ap_card_cpu_err=f"{ap_err:.3e}", ap_cpu_nudged_err=f"{nudge_err:.3e}",
+         card_s=f"{card_s:.2f}", nms_fused=mono, gather=gathers)
+    if not (score_err <= TRAINED_SCORE_TOL and mono > 0 and gathers > 0
+            and all(0 <= ap[w][k] <= 1 for w in ap for k in keys)):
+        fail("train_eval: the trained net's scores disagree with the CPU's, "
+             "its APs are out of range, or evaluate did not launch the "
+             "kernels")
+    count(mono, blocked, gathers)
+
+
+def train_phases(dev, tmp, img_dir, shapes):
+    """[train_yolo], [train_ssd], [train_cli], [train_eval]: training of the
+    two edge detectors at full width, the train CLI to a served checkpoint,
+    and evaluate through the kernels. Returns the kernels' launch counts of
+    the train -> evaluate path."""
+    import torch
+
+    from edgeml_tpu_torch.models.engine import make_detector
+
+    root = os.path.join(tmp, "train")
+    os.makedirs(root)
+    walls = {}
+    t0 = time.perf_counter()
+    x, tg, valid = train_inputs(img_dir, "yolo")
+    train_family_phase(
+        "yolo", lambda: make_detector(
+            "yolov5n", 80, TRAIN_SIZE["yolo"],
+            torch.Generator().manual_seed(21)),
+        x, tg, valid, dev)
+    walls["train_yolo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, tg, valid = train_inputs(img_dir, "ssd")
+    train_family_phase(
+        "ssd", lambda: make_detector(
+            "ssd", 20, TRAIN_SIZE["ssd"], torch.Generator().manual_seed(22)),
+        x, tg, valid, dev)
+    walls["train_ssd"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = train_cli_phase(dev, root, img_dir, shapes)
+    walls["train_cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = train_eval_phase(dev, img_dir, res["ema"].module)
+    walls["train_eval"] = time.perf_counter() - t0
+    line("train_wall", total_s=f"{sum(walls.values()):.1f}",
+         **{f"{k}_s": f"{v:.1f}" for k, v in walls.items()})
+    return launches
 
 
 if __name__ == "__main__":

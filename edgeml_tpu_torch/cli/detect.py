@@ -10,8 +10,11 @@ and the torchvision trio ``ssd`` (SSDLite320-MobileNetV3-Large),
 ``retinanet`` (RetinaNet-ResNet50-FPN-v2) and ``faster_rcnn``
 (Faster R-CNN-ResNet50-FPN-v2), whose COCO (91) or VOC (21) label ids are
 remapped to the compact YOLO ids; their weights load from torchvision
-state_dicts by key. ``--int8``, ``--data-parallel`` and native JAX
-checkpoints are not yet ported and exit with a message.
+state_dicts by key. ``--model-path`` also takes a native training
+checkpoint (the pickle that either package's train CLI writes, its model
+in the reference package's tree layout), preferring its EMA shadow when it
+has one. ``--int8``, ``--data-parallel`` and directory (orbax) checkpoints
+are not yet ported and exit with a message.
 """
 
 from __future__ import annotations
@@ -31,8 +34,7 @@ TORCHVISION_MODELS = ("ssd", "retinanet", "faster_rcnn")
 
 def load_state_dict(path: str):
     """A state_dict from an ``.npz`` of arrays or a ``torch.save`` archive
-    (a state_dict, or a checkpoint holding a module under ``model``). A
-    plain pickle is a native JAX checkpoint, which needs JAX to unpickle."""
+    (a state_dict, or a checkpoint holding a module under ``model``)."""
     if os.path.isdir(path):
         raise SystemExit(f"{path}: directory checkpoints (native JAX) are "
                          f"not yet ported")
@@ -40,8 +42,8 @@ def load_state_dict(path: str):
         data = np.load(path, allow_pickle=False)
         return {k: data[k] for k in data.files}
     if not zipfile.is_zipfile(path):
-        raise SystemExit(f"{path}: not a torch archive or .npz; native JAX "
-                         f"checkpoints are not yet ported")
+        raise SystemExit(f"{path}: not a torch archive, an .npz or a native "
+                         f"training checkpoint")
     obj = torch.load(path, map_location="cpu", weights_only=False)
     if hasattr(obj, "state_dict"):
         obj = obj.state_dict()
@@ -70,6 +72,17 @@ def _reduced_tail(sd) -> bool:
                for v in sd.values())
 
 
+def native_weights(payload):
+    """(params, stats) of a native training checkpoint's payload: the EMA
+    shadow when it has one (the shipped model of the ultralytics recipe),
+    else the live weights."""
+    src = payload.get("ema") or payload["model"]
+    which = "EMA" if "ema" in payload else "live"
+    print(f"loading native checkpoint ({which} weights, epoch "
+          f"{payload.get('epoch', '?')})")
+    return src["params"], src.get("stats")
+
+
 def load_detector(model_name: str, model_path: str, num_class: int):
     """Build a detector and load weights (random init, seed 0, with a
     warning when no path is given)."""
@@ -77,7 +90,12 @@ def load_detector(model_name: str, model_path: str, num_class: int):
         raise SystemExit(
             f"Model '{model_name}' is not yet ported to edgeml_tpu_torch "
             f"(ported: {', '.join(YOLO_MODELS + TORCHVISION_MODELS)}).")
-    sd = load_state_dict(model_path) if model_path else None
+    from ..models.train import read_payload
+
+    native = read_payload(model_path) \
+        if model_path and os.path.isfile(model_path) else None
+    sd = load_state_dict(model_path) if model_path and native is None \
+        else None
     gen = torch.Generator().manual_seed(0)
     if model_name in YOLO_MODELS:
         from ..models.yolov5 import YoloV5
@@ -100,7 +118,13 @@ def load_detector(model_name: str, model_path: str, num_class: int):
         from ..models.faster_rcnn import FasterRCNN
 
         net = FasterRCNN(num_classes=num_class, generator=gen)
-    if sd is None:
+    if native is not None:
+        params, stats = native_weights(native)
+        if stats is None:  # frozen-BatchNorm families carry no stats
+            net.from_jax_params(params)
+        else:
+            net.from_jax_params(params, stats)
+    elif sd is None:
         print("WARNING: no --model-path given; using random weights.")
     elif model_name in TORCHVISION_MODELS:
         load_torchvision_state_dict(net, sd)
@@ -149,7 +173,8 @@ def getargs(argv=None):
                            "(native), 'ssd', 'retinanet', 'faster_rcnn' "
                            "(COCO or VOC label space, remapped).")
     args.add_argument("--model-path", type=str, default="",
-                      help="Weights file (.pt state_dict or .npz); empty = random init (smoke tests only).")
+                      help="Weights file (.pt state_dict, .npz, or a native training "
+                           "checkpoint); empty = random init (smoke tests only).")
     args.add_argument('--batch-size', type=int, default=16, help="Inference batch size.")
     args.add_argument('--conf-thres', type=float, default=0.001, help="Confidence threshold.")
     args.add_argument('--iou-thres', type=float, default=0.6, help="NMS IoU threshold.")

@@ -49,10 +49,11 @@ def decode_image(path: str) -> np.ndarray:
 
 
 @lru_cache(maxsize=16)
-def _linear_taps(in_size: int, out_size: int):
+def _linear_taps(in_size: int, out_size: int, antialias: bool = True):
     """Banded resampling taps (idx (out, span) int, w (out, span) f32):
     half-pixel centres, triangle kernel widened to 1/scale when downscaling
-    (antialiasing), out-of-range taps dropped and rows renormalised.
+    (``antialias``; without it the kernel keeps width 1), out-of-range taps
+    dropped and rows renormalised.
 
     The kernel has finite support (span = ceil(2*max(1, 1/scale)) + 2), so
     the resampling matrix is banded and evaluating it as gathered taps costs
@@ -62,7 +63,7 @@ def _linear_taps(in_size: int, out_size: int):
     scale = out_size / in_size
     x = np.arange(out_size, dtype=np.float64)
     u = (x + 0.5) / scale - 0.5
-    s = max(1.0, 1.0 / scale)
+    s = max(1.0, 1.0 / scale) if antialias else 1.0
     lo = np.floor(u - s).astype(int)
     span = int(np.ceil(2 * s)) + 2
     j = lo[:, None] + np.arange(span)[None, :]
@@ -82,6 +83,22 @@ def resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return _eval_taps(img, out_h, out_w,
                       _linear_taps(img.shape[0], out_h),
                       _linear_taps(img.shape[1], out_w))
+
+
+def resize_bilinear_window(img: np.ndarray, out_h: int, out_w: int,
+                           y0: int, y1: int, x0: int, x1: int) -> np.ndarray:
+    """The [y0:y1, x0:x1] window of ``resize_bilinear(img, out_h, out_w)``,
+    computed directly: each output row and column depends only on its own
+    taps, so the sliced tap tables give the very same pixels for the
+    window's share of the work (mosaic pastes only the visible part of each
+    quadrant)."""
+    if (out_h, out_w) == img.shape[:2]:  # identity taps (resize_bilinear)
+        return np.array(img[y0:y1, x0:x1], dtype=np.float32, order="C",
+                        copy=True)
+    jh, wh = _linear_taps(img.shape[0], out_h)
+    jw, ww = _linear_taps(img.shape[1], out_w)
+    return _eval_taps(img, y1 - y0, x1 - x0,
+                      (jh[y0:y1], wh[y0:y1]), (jw[x0:x1], ww[x0:x1]))
 
 
 def _eval_taps(img, out_h, out_w, row_taps, col_taps):
@@ -122,21 +139,28 @@ def iter_batches(
     names: list,
     batch_size: int,
     make_batch,
+    order=None,
     prefetch: int = 2,
     workers: int = 4,
+    drop_last: bool = False,
 ):
-    """Yield make_batch([(name, decoded_image), ...]) per batch, in order,
-    the last batch possibly partial, prefetched.
+    """Yield make_batch([(name, decoded_image), ...]) per batch, prefetched.
 
     :param names: image file names (relative to img_dir).
     :param make_batch: host preprocess: list of (name, HWC float image) ->
         arbitrary batch payload. Runs in a worker thread.
+    :param order: optional index permutation (an epoch's shuffle); names
+        in order when None.
     :param prefetch: batches prepared ahead of the consumer.
+    :param drop_last: skip a trailing partial batch (training) or keep it
+        (inference).
     """
-    idx = np.arange(len(names))
+    idx = np.arange(len(names)) if order is None else np.asarray(order)
     spans = [
         idx[s : s + batch_size] for s in range(0, len(idx), batch_size)
     ]
+    if drop_last and spans and len(spans[-1]) < batch_size:
+        spans.pop()
 
     def build(span):
         items = [

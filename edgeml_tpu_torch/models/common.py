@@ -11,6 +11,11 @@ the reference's formula; a bf16 serving pass runs it in bf16 end to end.
 Every layer here casts its f32 weights to the input's dtype once
 (``CastCache``), so a module serves f32 and bf16 inputs without a copy of
 itself.
+
+A module put in training mode (``module.train()``) normalises with batch
+statistics instead (``bn_train``) and casts its weights with autograd
+(``cast_params``), so f32 master weights get f32 gradients through a bf16
+compute pass.
 """
 
 from __future__ import annotations
@@ -69,6 +74,60 @@ def seeded_init_(module: nn.Module, generator: torch.Generator | None = None):
             m.bias.zero_()
 
 
+def cast_params(module: nn.Module, tensors, dtype):
+    """``tensors`` in ``dtype``: the module's cached detached copies in eval
+    mode, casts that carry gradients back to the f32 masters in training
+    mode."""
+    if module.training:
+        return [t if t.dtype == dtype else t.to(dtype) for t in tensors]
+    return module._cast.get(tensors, dtype)
+
+
+def bn_train(y, bn: nn.BatchNorm2d, weight, bias):
+    """Training-mode BatchNorm over NCHW ``y``: normalise with the batch
+    mean and biased variance, then ``* weight + bias``, all in f32 whatever
+    ``y``'s dtype (the output is cast back to it); update ``bn``'s running
+    stats in place as ``(1 - m) * old + m * batch`` with the unbiased
+    variance. The reference's ``bn_apply(train=True)``."""
+    yf = y.to(torch.float32)
+    mean = yf.mean(dim=(0, 2, 3))
+    var = (yf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+    n = y.numel() / mean.numel()
+    with torch.no_grad():
+        m = bn.momentum
+        unbiased = var * n / max(n - 1.0, 1.0)
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1 - m) * bn.running_var + m * unbiased)
+    out = (yf - mean[:, None, None]) * torch.rsqrt(var + bn.eps)[:, None,
+                                                                  None]
+    out = out * weight[:, None, None] + bias[:, None, None]
+    return out.to(y.dtype)
+
+
+def running_stats(module: nn.Module) -> dict:
+    """{buffer name: tensor} of every BatchNorm running mean and variance
+    of ``module`` (the live buffers, not copies)."""
+    return {k: v for k, v in module.named_buffers()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def conv_bn_train(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, module):
+    """conv(x) (no bias) in x's dtype, then training-mode BatchNorm with
+    the affine in the compute dtype's rounding (``bn_train``)."""
+    w, g, b = cast_params(module, [conv.weight, bn.weight, bn.bias],
+                          x.dtype)
+    y = F.conv2d(x, w, None, conv.stride, conv.padding, 1, conv.groups)
+    return bn_train(y, bn, g, b)
+
+
+def conv_bn(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, module):
+    """Eval (``conv_bn_eval``) or training (``conv_bn_train``) BatchNorm by
+    ``module``'s mode."""
+    if module.training:
+        return conv_bn_train(x, conv, bn, module)
+    return conv_bn_eval(x, conv, bn, module._cast)
+
+
 def conv_bn_eval(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, cast: CastCache):
     """conv(x) (no bias) then eval BatchNorm, both in x's dtype."""
     w, g, b, m, v = cast.get([conv.weight, bn.weight, bn.bias,
@@ -94,7 +153,7 @@ class ConvBN(nn.Module):
         self._cast = CastCache()
 
     def forward(self, x):
-        y = conv_bn_eval(x, self.conv, self.bn, self._cast)
+        y = conv_bn(x, self.conv, self.bn, self)
         return y * torch.sigmoid(y)
 
 
@@ -125,9 +184,12 @@ class DtypeConv2d(nn.Conv2d):
 
     def forward(self, x):
         if self.bias is None:
-            (w,) = self._cast.get([self.weight], x.dtype)
+            (w,) = cast_params(self, [self.weight], x.dtype)
             return self._conv_forward(x, w, None)
-        w, b = self._cast.get([self.weight, self.bias], x.dtype)
+        w, b = cast_params(self, [self.weight, self.bias], x.dtype)
+        if self.training:
+            # the reference adds the bias after the conv, in x's dtype
+            return self._conv_forward(x, w, None) + b[:, None, None]
         return self._conv_forward(x, w, b)
 
 
@@ -140,7 +202,7 @@ class DtypeLinear(nn.Linear):
         self._cast = CastCache()
 
     def forward(self, x):
-        w, b = self._cast.get([self.weight, self.bias], x.dtype)
+        w, b = cast_params(self, [self.weight, self.bias], x.dtype)
         return F.linear(x, w, b)
 
 
@@ -152,7 +214,7 @@ class DtypeGroupNorm(nn.GroupNorm):
         self._cast = CastCache()
 
     def forward(self, x):
-        w, b = self._cast.get([self.weight, self.bias], x.dtype)
+        w, b = cast_params(self, [self.weight, self.bias], x.dtype)
         return F.group_norm(x, self.num_groups, w, b, self.eps)
 
 
@@ -174,8 +236,7 @@ class ConvNormAct(nn.Sequential):
         self._cast = CastCache()
 
     def forward(self, x):
-        return ACTIVATIONS[self.act](
-            conv_bn_eval(x, self[0], self[1], self._cast))
+        return ACTIVATIONS[self.act](conv_bn(x, self[0], self[1], self))
 
 
 @torch.no_grad()

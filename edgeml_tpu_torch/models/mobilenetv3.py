@@ -22,7 +22,7 @@ import torch.nn as nn
 from .common import ConvNormAct, DtypeConv2d
 
 BN_EPS = 1e-3
-BN_MOMENTUM = 0.03
+BN_MOMENTUM = 0.01  # torchvision's detection setting; only training reads it
 C4_BLOCK = 12  # zero-based block index of the C4 tap
 
 

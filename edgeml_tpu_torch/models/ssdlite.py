@@ -21,7 +21,12 @@ rows ordered level, h, w, box.
 
 Weights come from a seeded ``torch.Generator`` (uniform +-1/sqrt(fan_in)
 convs, zero biases, identity BatchNorm), from the reference package's
-parameter trees (``from_jax_params``) or from a torchvision state_dict.
+parameter trees (``from_jax_params``; ``to_jax_params`` writes them back) or
+from a torchvision state_dict.
+
+Training: ``net.train()`` then ``train_forward`` (batch-stat BatchNorm,
+running stats updated in place); ``encode_boxes`` gives the regression
+targets.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .common import ConvNormAct, DtypeConv2d, seeded_init_
+from .common import ConvNormAct, DtypeConv2d, running_stats, seeded_init_
 from .mobilenetv3 import (
     BN_EPS, BN_MOMENTUM, mobilenet_v3_large_features, v3_large_config,
 )
@@ -182,6 +187,21 @@ class SSDLite(nn.Module):
         return (self.head.classification_head(feats),
                 self.head.regression_head(feats))
 
+    def train_forward(self, x, dtype: torch.dtype | None = None):
+        """Training forward (the module must be in training mode).
+
+        :param x: (B, S, S, 3) f32 normalised images, NHWC.
+        :param dtype: optional compute dtype (torch.bfloat16): weights are
+            cast with autograd, BatchNorm statistics stay f32.
+        :return: ((cls_logits (B, A, C), reg (B, A, 4)) in f32, stats):
+            ``running_stats()`` after their in-place update.
+        """
+        if not self.training:
+            raise RuntimeError("train_forward needs net.train()")
+        cls, reg = self(x if dtype is None else x.to(dtype))
+        return (cls.to(torch.float32), reg.to(torch.float32)), \
+            running_stats(self)
+
     def anchors(self, device) -> torch.Tensor:
         """The (A, 4) f32 default boxes on ``device``, cached."""
         cache = self.__dict__.setdefault("_anchors_on_device", {})
@@ -209,7 +229,102 @@ class SSDLite(nn.Module):
         return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
                            -1)
 
+    @staticmethod
+    def encode_boxes(gt, anchors):
+        """Inverse of ``decode_boxes``: (10, 10, 5, 5)-weighted deltas of
+        xyxy ``gt`` from xyxy ``anchors`` (the training targets), in the
+        reference's op order (sides floored at 1e-6)."""
+        wx, wy, ww, wh = BOX_CODER_WEIGHTS
+        acx = (anchors[:, 0] + anchors[:, 2]) * 0.5
+        acy = (anchors[:, 1] + anchors[:, 3]) * 0.5
+        aw = anchors[:, 2] - anchors[:, 0]
+        ah = anchors[:, 3] - anchors[:, 1]
+        gcx = (gt[..., 0] + gt[..., 2]) * 0.5
+        gcy = (gt[..., 1] + gt[..., 3]) * 0.5
+        gw = torch.clamp_min(gt[..., 2] - gt[..., 0], 1e-6)
+        gh = torch.clamp_min(gt[..., 3] - gt[..., 1], 1e-6)
+        return torch.stack([wx * (gcx - acx) / aw, wy * (gcy - acy) / ah,
+                            ww * torch.log(gw / aw), wh * torch.log(gh / ah)],
+                           -1)
+
     # ---- weights -----------------------------------------------------------
+
+    def _backbone_units(self):
+        """The backbone's layers in the reference's tree order: [(block
+        index or "stem"/"last", part name, kind, module)], kind "cna" (conv +
+        norm) or "se"."""
+        head, tail = self.backbone.features
+        mods = list(head[1:]) + list(tail)
+        units = [("stem", None, "cna", head[0])]
+        cin = 16
+        for bi, (k, exp, out, use_se, _, _) in enumerate(
+                v3_large_config(self.reduced_tail)):
+            if bi < 12:
+                layers = list(mods[bi].block)
+            elif bi == 12:
+                layers = [mods[12]] + list(mods[13])
+            else:
+                layers = list(mods[bi + 1].block)
+            parts = [("expand", "cna")] if exp != cin else []
+            parts.append(("dw", "cna"))
+            if use_se:
+                parts.append(("se", "se"))
+            parts.append(("project", "cna"))
+            if len(parts) != len(layers):
+                raise ValueError(f"block {bi}: {len(parts)} parts in the "
+                                 f"config, {len(layers)} in the module")
+            units += [(bi, name, kind, mod)
+                      for (name, kind), mod in zip(parts, layers)]
+            cin = out
+        units.append(("last", None, "cna", tail[-1]))
+        return units
+
+    @torch.no_grad()
+    def to_jax_params(self):
+        """The reference package's (params, stats) trees of this module:
+        nested dicts and lists of f32 NumPy arrays, HWIO conv kernels; the
+        exact inverse of ``from_jax_params``."""
+
+        def arr(t):
+            return t.detach().cpu().to(torch.float32).numpy().copy()
+
+        def conv(mod):
+            return {"w": arr(mod.weight.permute(2, 3, 1, 0)),
+                    "b": arr(mod.bias)}
+
+        def cna(mod):
+            return ({"w": arr(mod[0].weight.permute(2, 3, 1, 0)),
+                     "g": arr(mod[1].weight), "b": arr(mod[1].bias)},
+                    {"m": arr(mod[1].running_mean),
+                     "v": arr(mod[1].running_var)})
+
+        bp = {"blocks": [{} for _ in v3_large_config(self.reduced_tail)]}
+        bs = {"blocks": [{} for _ in bp["blocks"]]}
+        for where, name, kind, mod in self._backbone_units():
+            if kind == "se":
+                bp["blocks"][where][name] = {"fc1": conv(mod.fc1),
+                                             "fc2": conv(mod.fc2)}
+            elif name is None:
+                bp[where], bs[where] = cna(mod)
+            else:
+                bp["blocks"][where][name], bs["blocks"][where][name] = \
+                    cna(mod)
+        params, stats = {"backbone": bp}, {"backbone": bs}
+        params["extra"], stats["extra"] = [], []
+        for mod in self.backbone.extra:
+            ep, es = {}, {}
+            for unit, part in zip(mod, ("reduce", "dw", "expand")):
+                ep[part], es[part] = cna(unit)
+            params["extra"].append(ep)
+            stats["extra"].append(es)
+        for head_mod, key in ((self.head.classification_head, "cls_head"),
+                              (self.head.regression_head, "reg_head")):
+            params[key], stats[key] = [], []
+            for mod in head_mod.module_list:
+                dw_p, dw_s = cna(mod[0])
+                params[key].append({"dw": dw_p, "proj": conv(mod[1])})
+                stats[key].append({"dw": dw_s})
+        return params, stats
 
     @torch.no_grad()
     def from_jax_params(self, params, stats):
@@ -232,35 +347,14 @@ class SSDLite(nn.Module):
             mod[1].running_var.copy_(arr(s["v"]))
 
         bp, bs = params["backbone"], stats["backbone"]
-        units = []  # (module, kind, params, stats) in module order
-        head, tail = self.backbone.features
-        cna(head[0], bp["stem"], bs["stem"])
-        # blocks 0..11, block 12's expansion, its rest, 13, 14, last conv
-        mods = list(head[1:]) + list(tail)
-        for bi, (p, s) in enumerate(zip(bp["blocks"], bs["blocks"])):
-            if bi < 12:
-                layers = list(mods[bi].block)
-            elif bi == 12:
-                layers = [mods[12]] + list(mods[13])
-            else:
-                layers = list(mods[bi + 1].block)
-            parts = [("expand", "cna")] if "expand" in p else []
-            parts.append(("dw", "cna"))
-            if "se" in p:
-                parts.append(("se", "se"))
-            parts.append(("project", "cna"))
-            if len(parts) != len(layers):
-                raise ValueError(f"block {bi}: {len(parts)} parts in the "
-                                 f"parameters, {len(layers)} in the module")
-            for (name, kind), mod in zip(parts, layers):
-                units.append((mod, kind, p[name], s.get(name)))
-        units.append((tail[-1], "cna", bp["last"], bs["last"]))
-        for mod, kind, p, s in units:
-            if kind == "cna":
-                cna(mod, p, s)
-            else:
+        for where, name, kind, mod in self._backbone_units():
+            p = bp[where] if name is None else bp["blocks"][where][name]
+            if kind == "se":
                 conv(mod.fc1, p["fc1"])
                 conv(mod.fc2, p["fc2"])
+            else:
+                cna(mod, p, bs[where] if name is None
+                    else bs["blocks"][where][name])
         for mod, p, s in zip(self.backbone.extra, params["extra"],
                              stats["extra"]):
             for unit, part in zip(mod, ("reduce", "dw", "expand")):

@@ -13,8 +13,11 @@ rows ordered level, h, w, anchor (N = sum over levels of H * W * na).
 Weights come from a seeded ``torch.Generator`` (torch's default conv init:
 uniform in +-1/sqrt(fan_in); BatchNorm identity; yolov5's objectness/class
 bias priors), from the reference package's parameter trees
-(``from_jax_params``) or from an ultralytics state_dict
-(``load_ultralytics_state_dict``).
+(``from_jax_params``; ``to_jax_params`` writes them back) or from an
+ultralytics state_dict (``load_ultralytics_state_dict``).
+
+Training: ``net.train()`` then ``train_forward`` (batch-stat BatchNorm, the
+raw per-level heads the loss reads, running stats updated in place).
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .common import (
-    CastCache, ConvBN, max_pool_same, seeded_init_, upsample2x,
+    CastCache, ConvBN, cast_params, max_pool_same, running_stats,
+    seeded_init_, upsample2x,
 )
 
 BN_EPS = 1e-3
@@ -313,7 +317,74 @@ class YoloV5(nn.Module):
                        .permute(0, 3, 4, 1, 2))
         return out
 
+    def train_forward(self, x, dtype: torch.dtype | None = None):
+        """Training forward (the module must be in training mode).
+
+        :param x: (B, S, S, 3) f32 images in [0, 1], NHWC.
+        :param dtype: optional compute dtype (torch.bfloat16): weights are
+            cast with autograd, BatchNorm statistics stay f32.
+        :return: (heads, stats): the raw per-level heads, f32
+            (B, H, W, na, no) as the reference's ``apply`` lays them out,
+            and ``running_stats()`` after their in-place update.
+        """
+        if not self.training:
+            raise RuntimeError("train_forward needs net.train()")
+        hd = torch.float32 if dtype is None else dtype
+        feats = self.trunk(x.permute(0, 3, 1, 2).to(hd))
+        det = self.model[24]
+        heads = []
+        for f, conv in zip(feats, det.m):
+            w, b = cast_params(det, [conv.weight, conv.bias], hd)
+            h = F.conv2d(f, w) + b[:, None, None]
+            bsz, _, hh, ww = h.shape
+            heads.append(h.reshape(bsz, self.na, self.no, hh, ww)
+                         .permute(0, 3, 4, 1, 2).to(torch.float32))
+        return heads, running_stats(self)
+
     # ---- weights -----------------------------------------------------------
+
+    @torch.no_grad()
+    def to_jax_params(self):
+        """The reference package's (params, stats) trees of this module:
+        nested dicts and lists of f32 NumPy arrays, HWIO conv kernels; the
+        exact inverse of ``from_jax_params``."""
+
+        def arr(t):
+            return t.detach().cpu().to(torch.float32).numpy().copy()
+
+        def convbn(mod):
+            return ({"w": arr(mod.conv.weight.permute(2, 3, 1, 0)),
+                     "g": arr(mod.bn.weight), "b": arr(mod.bn.bias)},
+                    {"m": arr(mod.bn.running_mean),
+                     "v": arr(mod.bn.running_var)})
+
+        params, stats = {}, {}
+        for idx, kind, _, kw in self.layers():
+            name = f"l{idx}"
+            mod = self.model[idx]
+            if kind == "conv":
+                params[name], stats[name] = convbn(mod)
+            elif kind == "c3":
+                p, s = {}, {}
+                for cv in ("cv1", "cv2", "cv3"):
+                    p[cv], s[cv] = convbn(getattr(mod, cv))
+                p["m"], s["m"] = [], []
+                for j in range(kw["n"]):
+                    bp, bs = {}, {}
+                    for cv in ("cv1", "cv2"):
+                        bp[cv], bs[cv] = convbn(getattr(mod.m[j], cv))
+                    p["m"].append(bp)
+                    s["m"].append(bs)
+                params[name], stats[name] = p, s
+            elif kind == "sppf":
+                p, s = {}, {}
+                p["cv1"], s["cv1"] = convbn(mod.cv1)
+                p["cv2"], s["cv2"] = convbn(mod.cv2)
+                params[name], stats[name] = p, s
+        params["detect"] = [{"w": arr(conv.weight.permute(2, 3, 1, 0)),
+                             "b": arr(conv.bias)}
+                            for conv in self.model[24].m]
+        return params, stats
 
     @torch.no_grad()
     def from_jax_params(self, params, stats):

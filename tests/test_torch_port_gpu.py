@@ -1222,3 +1222,127 @@ def test_detection_evaluator_greedy_card_equals_cpu(cuda):
     np.testing.assert_array_equal(res["cuda"]["per_iou"],
                                   res["cpu"]["per_iou"])
     assert res["cuda"]["map"] == res["cpu"]["map"] > 0
+
+
+# ---- training (the train step, the device HSV jitter, the train CLI and
+# evaluate's kernels) -------------------------------------------------------
+
+
+def _train_batch(seed, b=2, t=5, nc=4, s=64):
+    rng = np.random.default_rng(seed)
+    x = rng.random((b, s, s, 3)).astype(np.float32)
+    tg = np.zeros((b, t, 5), np.float32)
+    tg[..., 0] = rng.integers(0, nc, (b, t))
+    tg[..., 1:3] = rng.uniform(0.2, 0.8, (b, t, 2))
+    tg[..., 3:5] = rng.uniform(0.1, 0.5, (b, t, 2))
+    return (torch.from_numpy(x), torch.from_numpy(tg),
+            torch.ones(b, t, dtype=torch.bool))
+
+
+def test_train_step_card_vs_cpu(cuda):
+    """One SGD step of YOLOv5n (4 classes, 64 px, batch 2) on the card and
+    on the CPU from the same weights: the loss within 1e-5 relative (the
+    same parameters: the forward's rounding only), each tensor after the
+    step within 1e-3 of its largest |value| (the gradients' rounding times
+    lr), BatchNorm stats within 1e-4."""
+    import copy
+
+    from edgeml_tpu_torch.models.engine import make_family_train_step
+    from edgeml_tpu_torch.models.train import TrainConfig
+    from edgeml_tpu_torch.models.yolov5 import YoloV5
+
+    net = YoloV5("n", 4, 64, generator=torch.Generator().manual_seed(3))
+    nets = {"cpu": net, "cuda": copy.deepcopy(net).to(cuda)}
+    x, tg, v = _train_batch(4)
+    out = {}
+    for dev, n in nets.items():
+        _, step = make_family_train_step(n, TrainConfig())
+        loss, parts = step(x.to(dev), tg.to(dev), v.to(dev), 0.02)
+        out[dev] = float(loss)
+        assert loss.device.type == dev
+    assert abs(out["cuda"] - out["cpu"]) <= 1e-5 * out["cpu"]
+    for (k, a), b in zip(nets["cuda"].state_dict().items(),
+                         nets["cpu"].state_dict().values()):
+        if not a.is_floating_point():
+            continue
+        tol = 1e-4 if "running" in k else 1e-3
+        scale = max(float(b.abs().max()), 1e-6 if "running" in k else 1e-3)
+        assert float((a.cpu() - b).abs().max()) <= tol * scale, k
+
+
+def test_device_hsv_jitter_card_vs_cpu(cuda):
+    from edgeml_tpu_torch.data.yolo_aug import hsv_gains
+    from edgeml_tpu_torch.ops.color import hsv_jitter
+
+    rng = np.random.default_rng(6)
+    imgs = torch.from_numpy(rng.random((4, 64, 80, 3)).astype(np.float32))
+    gains = torch.from_numpy(np.stack(
+        [hsv_gains(np.random.default_rng(s)) for s in range(4)]).astype(
+            np.float32))
+    got = hsv_jitter(imgs.to(cuda), gains.to(cuda))
+    assert got.device.type == "cuda"
+    want = hsv_jitter(imgs, gains)
+    assert float((got.cpu() - want).abs().max()) < 1e-6
+
+
+def test_train_cli_on_cuda_and_served(cuda, tmp_path):
+    """The train CLI on the card by default (no --device), --preset yolo
+    --augment yolo --ema, then the detect CLI serves its checkpoint on the
+    card."""
+    from edgeml_tpu_torch.cli import detect as detect_cli
+    from edgeml_tpu_torch.cli import train as train_cli
+
+    rng = np.random.default_rng(7)
+    img_dir, lab_dir = tmp_path / "images", tmp_path / "labels"
+    img_dir.mkdir()
+    lab_dir.mkdir()
+    for i in range(8):
+        np.save(img_dir / f"im{i}.npy",
+                rng.random((64, 64, 3)).astype(np.float32))
+        (lab_dir / f"im{i}.txt").write_text("1 0.5 0.5 0.3 0.4\n")
+    res = train_cli.main(train_cli.getargs(
+        [str(img_dir), str(tmp_path / "out"), "--label-dir", str(lab_dir),
+         "--model", "yolov5n", "-b", "4", "--img-size", "64", "--epochs",
+         "1", "--preset", "yolo", "--augment", "yolo", "--ema"]))
+    assert next(res["state"].parameters()).device.type == "cuda"
+    assert np.isfinite(res["epoch_loss"][0])
+    detect_cli.main(detect_cli.getargs(
+        [str(img_dir), str(tmp_path / "dets"), "--model", "yolov5n",
+         "--dataset", "voc", "--model-path",
+         str(tmp_path / "out" / "checkpoint.pth"), "--batch-size", "4"]))
+    assert len(os.listdir(tmp_path / "dets")) == 8
+
+
+@pytest.mark.parametrize("family", ["yolo", "ssd"])
+def test_evaluate_launches_kernels_and_equals_cpu(cuda, family):
+    """evaluate on the card serves through the suppressor kernels (YOLOv5n:
+    the monolithic one at K = 1008 and the row gather; SSDLite: the blocked
+    one at K = 1152) and its APs equal the CPU's within 3e-5."""
+    import copy
+
+    from edgeml_tpu_torch.models.engine import evaluate
+    from edgeml_tpu_torch.models.ssdlite import SSDLite
+    from edgeml_tpu_torch.models.yolov5 import YoloV5
+
+    g = torch.Generator().manual_seed(8)
+    net = YoloV5("n", 4, 64, generator=g) if family == "yolo" \
+        else SSDLite(9, 64, generator=g)
+    rng = np.random.default_rng(9)
+    images = [rng.random((64, 48 + 8 * i, 3)).astype(np.float32)
+              for i in range(6)]
+    gts = [np.array([[1, 0.5, 0.5, 0.4, 0.3], [2, 0.3, 0.6, 0.2, 0.2]],
+                    np.float32) for _ in images]
+    before = [w.launches for w in (greedy_keep_mask_cuda,
+                                   greedy_keep_mask_blocked_cuda,
+                                   gather_rows_cuda)]
+    got = evaluate(copy.deepcopy(net).to(cuda), images, gts, batch_size=4)
+    mono, blocked, gath = (w.launches - b for w, b in zip(
+        (greedy_keep_mask_cuda, greedy_keep_mask_blocked_cuda,
+         gather_rows_cuda), before))
+    if family == "yolo":
+        assert mono == 2 and blocked == 0 and gath == 6
+    else:
+        assert blocked == 2 and mono == 0 and gath > 0
+    want = evaluate(net, images, gts, batch_size=4)
+    for k in ("map", "map50", "map75"):
+        assert abs(got[k] - want[k]) <= 3e-5, k

@@ -40,7 +40,10 @@ def test_import_pulls_in_no_jax():
               "estimators.baselines", "cli.dataset_split",
               "cli.extract_feature", "cli.regression", "cli.baseline",
               "dataprep.labels", "dataprep.coco_dataset", "ops.roi",
-              "coco_matching", "eval_coco", "cli.label"):
+              "coco_matching", "eval_coco", "cli.label", "models.loss",
+              "models.train", "models.engine", "parallel.meters",
+              "data.fastaug", "data.yolo_aug", "data.transforms",
+              "ops.color", "cli.train"):
         assert "edgeml_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

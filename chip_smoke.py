@@ -50,7 +50,18 @@ what comes out:
     (--preset yolo --augment yolo --ema) to a checkpoint the detect CLI
     serves, and the training engine's ``evaluate`` on the card against the
     CPU through the suppressor and gather kernels, whose launches there
-    the kernel record carries as ``train_eval_launches``.
+    the kernel record carries as ``train_eval_launches``;
+  * training of the frozen-norm families: RetinaNet and Faster R-CNN
+    (ResNet-50-FPN-v2, 21 classes, 640, batch 4), f32 and bf16 (one step
+    against the CPU's at 256 from the same weights and sampling draws,
+    every loss part and the update held to recorded limits with a TF32
+    control; the step's stages timed; 20 steps on a fixed batch with the
+    loss falling; Faster R-CNN's proposals in the step, kernel against
+    plain, and its kernels' launches a step), and the train CLI of each to
+    a checkpoint the detect CLI serves and ``evaluate`` runs through the
+    kernels (their launches added to ``train_eval_launches``; the
+    sequential suppressor's and the gather's records gain their launches a
+    train step and their times at the step's shapes beside their bounds).
 
 Before the serving paths, each kernel is held against its plain version
 bit for bit and timed (``kernel_ms`` looped, ``device_ms`` from a CUDA
@@ -750,8 +761,12 @@ def main(kernels_only=False):
         records.append(estimator_phases(dev, tmp))
         hidden_phases(dev, tmp, img_dir)
         train_launches = train_phases(dev, tmp, img_dir, shapes)
+        frozen_launches, step_fields = frozen_train_phases(dev, tmp, img_dir,
+                                                           shapes)
         for rec in records:
-            rec["train_eval_launches"] = train_launches.get(rec["name"], 0)
+            rec["train_eval_launches"] = train_launches.get(rec["name"], 0) \
+                + frozen_launches.get(rec["name"], 0)
+            rec.update(step_fields.get(rec["name"], {}))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     line("wall", script_s=f"{time.perf_counter() - start:.1f}")
@@ -3835,6 +3850,425 @@ def train_phases(dev, tmp, img_dir, shapes):
     line("train_wall", total_s=f"{sum(walls.values()):.1f}",
          **{f"{k}_s": f"{v:.1f}" for k, v in walls.items()})
     return launches
+
+
+# ---- training of the frozen-norm families (RetinaNet, Faster R-CNN) -------
+FROZEN_SIZE = 640  # ResNet-50-FPN-v2 at the serving size
+FROZEN_BATCH = 4
+FROZEN_CLASSES = 20  # VOC: num_classes + 1 = 21 columns
+FROZEN_STEPS = 20  # steps on one fixed batch: the loss must fall
+FROZEN_SPLIT_FROM = 5  # steps whose stage times are averaged
+# RetinaNet's box loss climbs from a random init at 0.01 without the
+# schedule's warmup (2.35 -> 4.32 -> 3.56 on the CPU at 256); 1e-3 falls
+FROZEN_LR = {"retinanet": 1e-3, "faster_rcnn": 1e-2}
+# one step card against CPU at a cut size (the CPU's time), from the same
+# weights and sampling draws
+FROZEN_CPU_SIZE = 256
+FROZEN_CPU_BATCH = 2
+# its limits per family and dtype: every loss part's relative error and
+# the update's (every trained tensor at once) norm of the difference over
+# the CPU update's norm, about 5-13x the readings of an NVIDIA H100 80GB
+# HBM3 at 700 W: f32 RetinaNet loss 1.0e-07, update 1.6e-05, Faster R-CNN
+# 1.6e-07, 1.5e-05; bf16 RetinaNet 3.5e-04, 9.6e-02, Faster R-CNN 2.1e-02
+# (its RoI regression part), 5.3e-03. The f32 step with TF32 on is the
+# control and must break one (read: RetinaNet 1.6e-04, 3.2e-02; Faster
+# R-CNN 2.5e-06, 3.1e-03).
+FROZEN_LIMITS = {
+    ("retinanet", "f32"): {"loss": 1e-5, "update": 2e-4},
+    ("retinanet", "bf16"): {"loss": 2e-3, "update": 0.5},
+    ("faster_rcnn", "f32"): {"loss": 1e-5, "update": 2e-4},
+    ("faster_rcnn", "bf16"): {"loss": 0.1, "update": 3e-2},
+}
+FROZEN_SHORT = {"retinanet": "retina", "faster_rcnn": "frcnn"}
+FROZEN_CLI_IMAGES = 16
+FROZEN_EVAL_IMAGES = 8
+FROZEN_SERVE_CONF = 0.01
+
+
+def frozen_inputs(img_dir, size, b):
+    """The first ``b`` serving images as the train CLI feeds the frozen-norm
+    families (square resize, normalised) and seeded targets."""
+    from edgeml_tpu_torch.data.loader import decode_image
+    from edgeml_tpu_torch.models.infer import square_batch
+
+    names = sorted(os.listdir(img_dir))[:b]
+    x = square_batch([decode_image(os.path.join(img_dir, n))
+                      for n in names], size)
+    tg, valid = train_targets(np.random.default_rng(14), b)
+    return x, tg, valid
+
+
+def frozen_net(family, size):
+    import torch
+
+    from edgeml_tpu_torch.models.engine import make_detector
+
+    return make_detector(family, FROZEN_CLASSES, size,
+                         torch.Generator().manual_seed(23))
+
+
+def frozen_draws(net, b, t, dev):
+    """One step's seeded sampling draws on ``dev`` (None for RetinaNet)."""
+    import torch
+
+    from edgeml_tpu_torch.models import faster_rcnn as tfr
+    from edgeml_tpu_torch.models.rcnn_loss import uniform_draws
+
+    if not isinstance(net, tfr.FasterRCNN):
+        return None
+    anchors = tfr.rpn_anchors(net.image_size)
+    n_roi = min(net.rpn_post_nms, sum(min(tfr.PRE_NMS, len(a))
+                                      for a in anchors)) + t
+    draws = uniform_draws(torch.Generator().manual_seed(15), b,
+                          sum(len(a) for a in anchors), n_roi, "cpu")
+    return type(draws)(*(d.to(dev) for d in draws))
+
+
+def frozen_step_vs_cpu(tag, family, label, dtype, img_dir, dev):
+    """One SGD step at FROZEN_CPU_SIZE on the CPU and on the card (and, in
+    f32, on the card with TF32 on) from the same weights and draws: every
+    loss part and the update against the CPU's, held to FROZEN_LIMITS."""
+    import torch
+
+    from edgeml_tpu_torch.device import exact_f32_cuda
+    from edgeml_tpu_torch.models.engine import make_family_train_step
+    from edgeml_tpu_torch.models.train import TrainConfig
+
+    x, tg, valid = frozen_inputs(img_dir, FROZEN_CPU_SIZE, FROZEN_CPU_BATCH)
+    net_c = frozen_net(family, FROZEN_CPU_SIZE)
+    lr = FROZEN_LR[family]
+    modes = ["card"] + (["tf32"] if dtype is None else [])
+    nets = {m: copy.deepcopy(net_c).to(dev) for m in modes}
+    nets["cpu"] = net_c
+    before = [p.detach().clone() for p in net_c.parameters()
+              if p.requires_grad]
+    runs = {}
+    for mode, net in nets.items():
+        torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"
+        torch.backends.cudnn.allow_tf32 = mode == "tf32"
+        where = net_device(net)
+        _, step = make_family_train_step(net, TrainConfig(lr=lr),
+                                         dtype=dtype)
+        draws = frozen_draws(net, len(x), tg.shape[1], where)
+        if draws is not None:
+            step.draw_fn = lambda *a, d=draws: d
+        loss, parts = step(*(torch.from_numpy(a).to(where)
+                             for a in (x, tg, valid)), lr)
+        runs[mode] = ({"total": float(loss),
+                       **{k: float(v) for k, v in parts.items()}},
+                      [p.detach().cpu() for p in step.opt.params])
+    exact_f32_cuda()
+    lim = FROZEN_LIMITS[(family, label)]
+    cpu_parts, cpu_params = runs["cpu"]
+    sq_u = sum(float(((p - b).double() ** 2).sum())
+               for p, b in zip(cpu_params, before))
+    passed = {}
+    for mode in modes:
+        parts, params = runs[mode]
+        errs = {k: abs(parts[k] - v) / abs(v) for k, v in cpu_parts.items()}
+        sq_d = sum(float(((a - b).double() ** 2).sum())
+                   for a, b in zip(params, cpu_params))
+        u_err = math.sqrt(sq_d / sq_u)
+        passed[mode] = max(errs.values()) <= lim["loss"] \
+            and u_err <= lim["update"]
+        line(f"{tag}_step_vs_cpu" + ("" if mode == "card"
+                                     else "_tf32_control"),
+             size=FROZEN_CPU_SIZE, batch=len(x),
+             **{f"cpu_{k}": f"{v:.6f}" for k, v in cpu_parts.items()},
+             **{f"{k}_rel_err": f"{e:.3e}" for k, e in errs.items()},
+             update_norm_err=f"{u_err:.3e}",
+             tol=f"loss {lim['loss']:g}, update norm {lim['update']:g}",
+             within=passed[mode])
+    if not passed["card"]:
+        fail(f"{tag}: the card's train step disagrees with the CPU's")
+    if passed.get("tf32"):
+        fail(f"{tag}: the limits do not tell the step with TF32 on from the "
+             f"f32 step")
+
+
+def frozen_kernels_at_step(net, step, xd, tgd, vd):
+    """The Faster R-CNN step's proposals, kernel against plain on the
+    step's own RPN outputs, and the sequential suppressor's and the row
+    gather's times at the step's shapes (looped, and the device alone in a
+    replayed CUDA graph) beside their bounds. Returns {record name:
+    {train_step_ms (the device's), train_step_bound_ms}}."""
+    import torch
+
+    from edgeml_tpu_torch.models import faster_rcnn as tfr
+    from edgeml_tpu_torch.ops.gather import gather_rows
+    from edgeml_tpu_torch.ops.nms_seq import (
+        suppress_mask_seq_cuda, suppress_mask_seq_plain,
+    )
+
+    seen = {"gather_rows": []}
+    real_seq, real_gather = tfr.suppress_mask_seq, tfr.gather_rows
+
+    def seq(*args):
+        seen["seq"] = args
+        return real_seq(*args)
+
+    def gather(*args):
+        seen["gather_rows"].append(args)
+        return real_gather(*args)
+
+    net.train()
+    with torch.no_grad():
+        _, objs, regs = step.forward(xd)
+        tfr.suppress_mask_seq, tfr.gather_rows = seq, gather
+        try:
+            k_boxes, k_valid = net.proposals(objs, regs)
+        finally:
+            tfr.suppress_mask_seq, tfr.gather_rows = real_seq, real_gather
+        with plain_kernels():
+            p_boxes, p_valid = net.proposals(objs, regs)
+    if not (torch.equal(k_boxes, p_boxes) and torch.equal(k_valid, p_valid)):
+        fail("train_frcnn: the step's proposals, kernel != plain")
+    boxes, scores, thr, max_keep = seen["seq"]
+    kept, picks = suppress_mask_seq_cuda(boxes, scores, thr, max_keep)
+    p_kept, p_picks = suppress_mask_seq_plain(boxes, scores, thr, max_keep)
+    if not (torch.equal(kept, p_kept) and torch.equal(picks, p_picks)):
+        fail("train_frcnn: the step's RPN segments, kernel != plain")
+    def seq_run():
+        return suppress_mask_seq_cuda(boxes, scores, thr, max_keep)
+
+    calls = seen["gather_rows"]
+
+    def gather_run():
+        return [gather_rows(*a) for a in calls]
+
+    seq_ms, g_ms = cuda_ms(seq_run, 20), cuda_ms(gather_run, 20)
+    seq_dev, g_dev = device_ms(seq_run), device_ms(gather_run)
+    seq_bound, seq_by, _, _, _ = seq_bound_ms(boxes, scores, picks, thr)
+    g_bound = sum(gather_bound_ms(a[0], a[1], a[2] if len(a) > 2 else None,
+                                  gather_rows(*a))[0] for a in calls)
+    line("train_frcnn_proposals_kernel_vs_plain", batch=len(xd),
+         segments=tuple(scores.shape)[0], k=tuple(scores.shape)[1],
+         proposals_equal=True, proposals=int(k_valid.sum()),
+         seq_kernel_ms=f"{seq_ms:.4f}", seq_device_ms=f"{seq_dev:.4f}",
+         seq_bound_ms=f"{seq_bound:.4f}", seq_bound_by=seq_by,
+         gathers=len(calls), gather_kernel_ms=f"{g_ms:.4f}",
+         gather_device_ms=f"{g_dev:.4f}", gather_bound_ms=f"{g_bound:.4f}")
+    return {"nms_seq_suppress": {"train_step_ms": seq_dev,
+                                 "train_step_bound_ms": seq_bound},
+            "gather_rows": {"train_step_ms": g_dev,
+                            "train_step_bound_ms": g_bound}}
+
+
+def frozen_family_phase(family, img_dir, dev):
+    """[train_retina_*] / [train_frcnn_*]: per dtype (f32, bf16) one step
+    card against CPU, then FROZEN_STEPS SGD steps with the EMA at full
+    width on one fixed batch: the loss must fall; each step's stage times
+    (forward, loss, backward, optimiser, EMA) from CUDA events, img/s,
+    peak GiB, the kernels launched a step, and one step traced (device
+    busy time, idle share, the largest device items). Faster R-CNN: its
+    forward is the trunk and the RPN head, its loss the proposals, both
+    samplings, RoIAlign, the box head and the losses. Returns the kernel
+    records' train-step fields."""
+    import torch
+
+    from edgeml_tpu_torch.models.engine import make_family_train_step
+    from edgeml_tpu_torch.models.train import ModelEMA, TrainConfig
+
+    short = FROZEN_SHORT[family]
+    lr = FROZEN_LR[family]
+    x, tg, valid = frozen_inputs(img_dir, FROZEN_SIZE, FROZEN_BATCH)
+    xd, tgd, vd = (torch.from_numpy(a).to(dev) for a in (x, tg, valid))
+    fields = {}
+    for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        tag = f"train_{short}_{label}"
+        frozen_step_vs_cpu(tag, family, label, dtype, img_dir, dev)
+        net = frozen_net(family, FROZEN_SIZE).to(dev)
+        _, step = make_family_train_step(net, TrainConfig(lr=lr),
+                                         dtype=dtype, seed=16)
+        ema = ModelEMA(net)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, split = [], []
+        reset_counts()
+        t0 = time.perf_counter()
+        for it in range(FROZEN_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            net.train()
+            ev[0].record()
+            pred = step.forward(xd)
+            ev[1].record()
+            total, _ = step.loss(pred, tgd, vd)
+            ev[2].record()
+            grads = step.grads(total)
+            ev[3].record()
+            step.opt.step(grads, lr)
+            ev[4].record()
+            ema.update(net)
+            ev[5].record()
+            torch.cuda.synchronize()
+            losses.append(float(total.detach()))
+            if it == 0:
+                first_s = time.perf_counter() - t0
+            if it >= FROZEN_SPLIT_FROM:
+                split.append([ev[i].elapsed_time(ev[i + 1])
+                              for i in range(5)])
+        wall = time.perf_counter() - t0
+        launched = counts()
+        ms = np.mean(split, axis=0)
+        step_ms = float(ms.sum())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        line(tag, batch=FROZEN_BATCH, size=FROZEN_SIZE, steps=FROZEN_STEPS,
+             loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
+             step_ms=f"{step_ms:.3f}", forward_ms=f"{ms[0]:.3f}",
+             loss_ms=f"{ms[1]:.3f}", backward_ms=f"{ms[2]:.3f}",
+             optimizer_ms=f"{ms[3]:.3f}", ema_ms=f"{ms[4]:.3f}",
+             device_img_s=f"{FROZEN_BATCH / step_ms * 1e3:.1f}",
+             wall_img_s=f"{FROZEN_BATCH * FROZEN_STEPS / wall:.1f}",
+             first_step_s=f"{first_s:.2f}", peak_gib=f"{peak:.2f}",
+             nms_seq_per_step=launched[2] / FROZEN_STEPS,
+             gather_per_step=launched[3] / FROZEN_STEPS)
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fail(f"{tag}: the loss did not fall on a fixed batch "
+                 f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+        want = (0, 0, FROZEN_STEPS, 3 * FROZEN_STEPS) \
+            if family == "faster_rcnn" else (0, 0, 0, 0)
+        if launched != want:
+            fail(f"{tag}: kernels launched {launched} in {FROZEN_STEPS} "
+                 f"steps, want {want}")
+        traced(f"{tag}_trace", lambda: step(xd, tgd, vd, lr))
+        if family == "faster_rcnn" and dtype is None:
+            fields = frozen_kernels_at_step(net, step, xd, tgd, vd)
+            fields["nms_seq_suppress"]["train_step_launches"] = 1
+            fields["gather_rows"]["train_step_launches"] = 3
+        del net, ema, step, grads, pred, total
+        torch.cuda.empty_cache()
+    return fields
+
+
+def frozen_cli_phase(family, dev, root, img_dir, shapes, lab_dir):
+    """[train_cli_retina] / [train_cli_frcnn]: the train CLI over the first
+    FROZEN_CLI_IMAGES serving images (VOC labels, --ema, one epoch at
+    FROZEN_BATCH, 640, --lr FROZEN_LR), the detect CLI on its checkpoint (the EMA), then
+    ``evaluate`` of the served net over FROZEN_EVAL_IMAGES images, GT from
+    its own detections, on the card and on the CPU, with the kernels the
+    card's launched. A net trained a few steps scores alike everywhere:
+    the APs' card-CPU difference is printed beside the CPU's own under the
+    stem scaled by one rounding, gated only to [0, 1]. Returns {kernel
+    record name: launches}."""
+    import torch
+
+    from edgeml_tpu_torch.cli import detect as detect_cli
+    from edgeml_tpu_torch.cli import train as train_cli
+    from edgeml_tpu_torch.data.loader import decode_image
+    from edgeml_tpu_torch.models.engine import evaluate
+
+    short = FROZEN_SHORT[family]
+    names = sorted(os.listdir(img_dir))[:FROZEN_CLI_IMAGES]
+    sub, sub_lab = (os.path.join(root, f"{short}_{d}")
+                    for d in ("images", "labels"))
+    os.makedirs(sub)
+    os.makedirs(sub_lab)
+    for n in names:
+        shutil.copy(os.path.join(img_dir, n), sub)
+        stem = n.rsplit(".", 1)[0] + ".txt"
+        shutil.copy(os.path.join(lab_dir, stem), sub_lab)
+    save = os.path.join(root, f"{short}_ckpt")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = train_cli.main(train_cli.getargs(
+            [sub, save, "--label-dir", sub_lab, "--model", family,
+             "--dataset", "voc", "-b", str(FROZEN_BATCH), "--epochs", "1",
+             "--ema", "--img-size", str(FROZEN_SIZE), "--lr",
+             str(FROZEN_LR[family])]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = FROZEN_CLI_IMAGES // FROZEN_BATCH
+    ck = os.path.join(save, "checkpoint.pth")
+    with open(ck, "rb") as f:
+        payload = pickle.load(f)
+    if sorted(os.listdir(save)) != ["checkpoint.pth", "model_0.pth"] or \
+            not np.isfinite(res["epoch_loss"][0]) or \
+            res["ema"].n_updates != steps or \
+            payload["model"]["stats"] is not None:
+        fail(f"train_cli_{short}: wrong checkpoint files, loss, EMA updates "
+             f"or statistics tree")
+    meters = res["loggers"][0].meters
+    out = os.path.join(root, f"{short}_dets")
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        detect_cli.main(detect_cli.getargs(
+            [sub, out, "--model", family, "--dataset", "voc",
+             "--model-path", ck, "--batch-size", "8", "--conf-thres",
+             str(FROZEN_SERVE_CONF)]))
+    detect_s = time.perf_counter() - t1
+    if "EMA weights" not in said.getvalue():
+        fail(f"train_cli_{short}: the detect CLI did not serve the EMA")
+    n_rows = check_files(out, shapes[:FROZEN_CLI_IMAGES], 20,
+                         FROZEN_SERVE_CONF)
+    if n_rows == 0:
+        fail(f"train_cli_{short}: the served checkpoint wrote no detections")
+
+    net = res["ema"].module.to(dev).eval()
+    images = [decode_image(os.path.join(img_dir, n))
+              for n in names[:FROZEN_EVAL_IMAGES]]
+    gts = own_gt(net, images, family)
+
+    def quiet_eval(m):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return evaluate(m, images, gts, batch_size=FROZEN_BATCH,
+                            conf_thres=0.001)
+
+    reset_counts()
+    t2 = time.perf_counter()
+    ap = {"card": quiet_eval(net)}
+    card_s = time.perf_counter() - t2
+    mono, blocked, seq, gathers = counts()
+    net_c = copy.deepcopy(net).cpu()
+    ap["cpu"] = quiet_eval(net_c)
+    with torch.no_grad():
+        next(net_c.parameters()).mul_(1 + 2.0 ** -23)
+    ap["nudged"] = quiet_eval(net_c)
+    keys = ("map", "map50", "map75")
+    ap_err = max(abs(ap["card"][k] - ap["cpu"][k]) for k in keys)
+    nudge_err = max(abs(ap["nudged"][k] - ap["cpu"][k]) for k in keys)
+    line(f"train_cli_{short}", images=FROZEN_CLI_IMAGES,
+         batch=FROZEN_BATCH, steps=steps,
+         epoch_loss=f"{res['epoch_loss'][0]:.4f}", wall_s=f"{wall:.2f}",
+         cli_wait_ms=f"{meters['data_time'].median * 1e3:.1f}",
+         cli_step_ms=f"{meters['step_time'].median * 1e3:.1f}",
+         detect_s=f"{detect_s:.2f}", files=FROZEN_CLI_IMAGES, rows=n_rows,
+         eval_images=FROZEN_EVAL_IMAGES, map=f"{ap['card']['map']:.6f}",
+         map50=f"{ap['card']['map50']:.6f}",
+         ap_card_cpu_err=f"{ap_err:.3e}",
+         ap_cpu_nudged_err=f"{nudge_err:.3e}", eval_card_s=f"{card_s:.2f}",
+         nms_blocked=blocked, nms_seq=seq, gather=gathers)
+    ok = all(0 <= ap[w][k] <= 1 for w in ap for k in keys) and blocked > 0
+    if family == "faster_rcnn":
+        ok = ok and seq > 0 and gathers > 0
+    if not ok:
+        fail(f"train_cli_{short}: APs out of range, or evaluate did not "
+             f"launch the kernels ({blocked}, {seq}, {gathers})")
+    return {"nms_fused_greedy_keep": mono, "nms_blocked_greedy_keep": blocked,
+            "nms_seq_suppress": seq, "gather_rows": gathers}
+
+
+def frozen_train_phases(dev, tmp, img_dir, shapes):
+    """RetinaNet and Faster R-CNN training at full width (ResNet-50-FPN-v2,
+    640, VOC), the train CLI to a served checkpoint and evaluate through
+    the kernels. Returns ({kernel record name: evaluate launches}, the
+    kernel records' train-step fields)."""
+    root = os.path.join(tmp, "train_frozen")
+    os.makedirs(root)
+    walls, launches, fields = {}, {}, {}
+    for family in ("retinanet", "faster_rcnn"):
+        short = FROZEN_SHORT[family]
+        t0 = time.perf_counter()
+        fields.update(frozen_family_phase(family, img_dir, dev))
+        walls[f"train_{short}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = frozen_cli_phase(family, dev, root, img_dir, shapes,
+                               os.path.join(tmp, "train", "labels"))
+        walls[f"train_cli_{short}"] = time.perf_counter() - t0
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    line("frozen_train_wall", total_s=f"{sum(walls.values()):.1f}",
+         **{f"{k}_s": f"{v:.1f}" for k, v in walls.items()})
+    return launches, fields
 
 
 if __name__ == "__main__":

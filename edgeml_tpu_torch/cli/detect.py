@@ -90,7 +90,7 @@ def load_detector(model_name: str, model_path: str, num_class: int):
         raise SystemExit(
             f"Model '{model_name}' is not yet ported to edgeml_tpu_torch "
             f"(ported: {', '.join(YOLO_MODELS + TORCHVISION_MODELS)}).")
-    from ..models.train import read_payload
+    from ..models.train import load_jax_tree, read_payload
 
     native = read_payload(model_path) \
         if model_path and os.path.isfile(model_path) else None
@@ -119,11 +119,7 @@ def load_detector(model_name: str, model_path: str, num_class: int):
 
         net = FasterRCNN(num_classes=num_class, generator=gen)
     if native is not None:
-        params, stats = native_weights(native)
-        if stats is None:  # frozen-BatchNorm families carry no stats
-            net.from_jax_params(params)
-        else:
-            net.from_jax_params(params, stats)
+        load_jax_tree(net, *native_weights(native))
     elif sd is None:
         print("WARNING: no --model-path given; using random weights.")
     elif model_name in TORCHVISION_MODELS:

@@ -5,10 +5,11 @@
 
 The same positional arguments and flags as the reference package's
 ``tpu_models/train.py``, plus ``--device`` (default ``cuda``; without a
-CUDA device it raises unless ``--device cpu`` is given). Ported families:
-``yolov5n``..``yolov5x`` and ``ssd`` (SSDLite320-MobileNetV3-Large);
-``retinanet`` and ``faster_rcnn`` exit "not yet ported". Trains on one
-device.
+CUDA device it raises unless ``--device cpu`` is given). Families:
+``yolov5n``..``yolov5x``, ``ssd`` (SSDLite320-MobileNetV3-Large),
+``retinanet`` (RetinaNet-ResNet50-FPN-v2) and ``faster_rcnn`` (Faster
+R-CNN-ResNet50-FPN-v2, its RoI sampling drawn from a generator seeded with
+``--seed``). Trains on one device.
 
 Data: images plus YOLO-format label files (``--label-dir``), or a raw
 VOCdevkit tree (``--voc-root``, 07+12 trainval). Images stream from disk
@@ -33,10 +34,6 @@ import os
 
 import numpy as np
 import torch
-
-TRAINED_FAMILIES = ("yolov5n", "yolov5s", "yolov5m", "yolov5l", "yolov5x",
-                    "ssd")
-
 
 def _build_augment(name: str):
     """The host augmentation of ``--augment`` none, flip or ssd."""
@@ -70,14 +67,10 @@ def main(opts):
         make_detector, make_family_train_step, train_one_epoch,
     )
     from ..models.train import (
-        ModelEMA, TrainConfig, load_checkpoint, lr_at, pad_targets,
-        save_checkpoint, yolo_recipe_config,
+        ModelEMA, TrainConfig, load_checkpoint, load_jax_tree, lr_at,
+        pad_targets, save_checkpoint, yolo_recipe_config,
     )
 
-    if opts.model in ("retinanet", "faster_rcnn"):
-        raise SystemExit(f"training '{opts.model}' is not yet ported to "
-                         f"edgeml_tpu_torch (ported: "
-                         f"{', '.join(TRAINED_FAMILIES)})")
     dev = resolve_device(opts.device)
     if dev.type == "cuda":
         exact_f32_cuda()
@@ -102,13 +95,14 @@ def main(opts):
     is_yolo = opts.model.startswith("yolov5")
     size = net.img_size if is_yolo else net.image_size
     opt, step = make_family_train_step(
-        net, cfg, dtype=torch.bfloat16 if opts.bf16 else None)
+        net, cfg, dtype=torch.bfloat16 if opts.bf16 else None,
+        seed=opts.seed)
 
     ema = None
     ema_payload = None
     if opts.resume:
         params, stats, opt_state, payload = load_checkpoint(opts.resume)
-        net.from_jax_params(params, stats)
+        load_jax_tree(net, params, stats)
         opt.load_state_dict(opt_state)
         opts.start_epoch = payload["epoch"] + 1
         ema_payload = payload.get("ema")
@@ -116,8 +110,8 @@ def main(opts):
         ema = ModelEMA(net)
         if ema_payload is not None:
             ema.n_updates = int(ema_payload["n_updates"])
-            ema.module.from_jax_params(ema_payload["params"],
-                                       ema_payload["stats"])
+            load_jax_tree(ema.module, ema_payload["params"],
+                          ema_payload.get("stats"))
 
     if opts.voc_root:
         # raw VOC XML annotations, 07+12 trainval, no label conversion
@@ -280,8 +274,8 @@ def getargs(argv=None):
                            "VOC XML annotations (07+12 trainval), no label conversion stage. "
                            "Overrides img_dir/--label-dir.")
     args.add_argument('--model', type=str, default="ssd",
-                      help="The object detector: 'ssd' or 'yolov5n'..'yolov5x' "
-                           "('faster_rcnn' and 'retinanet' are not yet ported).")
+                      help="The object detector: 'ssd', 'faster_rcnn', "
+                           "'retinanet' or 'yolov5n'..'yolov5x'.")
     args.add_argument('--dataset', type=str, default="voc", help="'voc' (20 classes) or 'coco' (80).")
     args.add_argument('-b', '--batch-size', default=32, type=int, help="Training batch size.")
     args.add_argument('--epochs', type=int, default=30, help="Total training epochs.")
@@ -313,7 +307,8 @@ def getargs(argv=None):
                       help="where --augment yolo applies its HSV jitter: on the "
                            "training device (default), on the loader host, or "
                            "disabled")
-    args.add_argument("--seed", default=0, type=int, help="shuffle and augmentation seed")
+    args.add_argument("--seed", default=0, type=int,
+                      help="shuffle, augmentation and RoI sampling seed")
     args.add_argument("--preset", default="", choices=["", "yolo"],
                       help="'yolo': the ultralytics optimizer recipe "
                            "(nesterov SGD 0.937, one_cycle cosine lrf=0.01, "

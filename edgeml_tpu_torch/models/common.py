@@ -15,7 +15,12 @@ itself.
 A module put in training mode (``module.train()``) normalises with batch
 statistics instead (``bn_train``) and casts its weights with autograd
 (``cast_params``), so f32 master weights get f32 gradients through a bf16
-compute pass.
+compute pass. Two norms never take batch statistics: a ``ConvNormAct``
+built ``frozen`` (the Faster R-CNN FPN and box head, whose norms hold the
+reference's conv biases as exact identities: only the bias trains) and
+``FrozenBatchNorm2d`` (the ResNet body), whose gain, shift and statistics
+are all trained by gradient, as the reference trains every leaf of its
+parameter tree.
 """
 
 from __future__ import annotations
@@ -122,16 +127,18 @@ def conv_bn_train(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, module):
 
 def conv_bn(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, module):
     """Eval (``conv_bn_eval``) or training (``conv_bn_train``) BatchNorm by
-    ``module``'s mode."""
-    if module.training:
+    ``module``'s mode; a ``frozen`` module always takes the eval form."""
+    if module.training and not getattr(module, "frozen", False):
         return conv_bn_train(x, conv, bn, module)
-    return conv_bn_eval(x, conv, bn, module._cast)
+    return conv_bn_eval(x, conv, bn, module)
 
 
-def conv_bn_eval(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, cast: CastCache):
-    """conv(x) (no bias) then eval BatchNorm, both in x's dtype."""
-    w, g, b, m, v = cast.get([conv.weight, bn.weight, bn.bias,
-                              bn.running_mean, bn.running_var], x.dtype)
+def conv_bn_eval(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, module):
+    """conv(x) (no bias) then eval BatchNorm, both in x's dtype (the weights
+    cast by ``cast_params``: with autograd in training mode)."""
+    w, g, b, m, v = cast_params(module, [conv.weight, bn.weight, bn.bias,
+                                         bn.running_mean, bn.running_var],
+                                x.dtype)
     y = F.conv2d(x, w, None, conv.stride, conv.padding, 1, conv.groups)
     inv = torch.rsqrt(v + torch.full((), bn.eps, dtype=v.dtype,
                                      device=v.device))
@@ -221,11 +228,16 @@ class DtypeGroupNorm(nn.GroupNorm):
 class ConvNormAct(nn.Sequential):
     """Conv2d (no bias, padding k // 2, optional groups) + eval BatchNorm +
     activation ("relu", "relu6", "hardswish" or None), named as torchvision's
-    ``Conv2dNormActivation``: ``0`` the conv, ``1`` the BatchNorm."""
+    ``Conv2dNormActivation``: ``0`` the conv, ``1`` the BatchNorm.
+
+    ``frozen``: the norm is the reference's conv bias held as an exact
+    identity (``load_jax_conv``): it never takes batch statistics, and of it
+    only the bias trains (its weight does not require a gradient)."""
 
     def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1,
                  groups: int = 1, act: str | None = "relu",
-                 eps: float = 1e-3, momentum: float = 0.03):
+                 eps: float = 1e-3, momentum: float = 0.03,
+                 frozen: bool = False):
         super().__init__(
             nn.Conv2d(cin, cout, k, stride, k // 2, groups=groups,
                       bias=False),
@@ -233,6 +245,9 @@ class ConvNormAct(nn.Sequential):
         if act not in ACTIVATIONS:
             raise ValueError(f"unknown activation {act!r}")
         self.act = act
+        self.frozen = frozen
+        if frozen:
+            self[1].weight.requires_grad_(False)
         self._cast = CastCache()
 
     def forward(self, x):
@@ -262,11 +277,43 @@ def load_jax_conv(conv: nn.Conv2d, p, bn: nn.Module | None = None):
     bn.running_var.fill_(float(var))
 
 
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A detached f32 NumPy copy of ``t``."""
+    return t.detach().cpu().to(torch.float32).numpy().copy()
+
+
+@torch.no_grad()
+def jax_conv(conv: nn.Conv2d, bn: nn.Module | None = None) -> dict:
+    """The reference's conv {w: HWIO kernel, b: bias} of ``conv``: the
+    inverse of ``load_jax_conv``. With ``bn`` the norm is folded in as the
+    reference's importer folds it (``scale = g * rsqrt(v + eps)``, ``w *
+    scale``, ``b - m * scale``, in f32), which an identity norm leaves
+    bit for bit unchanged."""
+    w = conv.weight.to(torch.float32)
+    if bn is None:
+        b = conv.bias
+    else:
+        scale = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+        w = w * scale[:, None, None, None]
+        b = bn.bias - bn.running_mean * scale
+    return {"w": host_array(w.permute(2, 3, 1, 0)), "b": host_array(b)}
+
+
 class FrozenBatchNorm2d(nn.Module):
-    """BatchNorm with fixed statistics (detection backbones never update
-    them): ``x * scale + shift`` with ``scale = weight * rsqrt(var + eps)``
-    and ``shift = bias - mean * scale`` computed in f32 and cast to the
-    input's dtype, the reference's frozen-BN affine.
+    """BatchNorm with fixed statistics (never from the batch): ``x * scale +
+    shift`` with ``scale = weight * rsqrt(var + eps)`` and ``shift = bias -
+    mean * scale`` computed in f32 and cast to the input's dtype, the
+    reference's frozen-BN affine.
+
+    All four tensors are parameters: the reference's train step
+    differentiates and updates its whole parameter tree, frozen-BN gain,
+    shift, mean and variance included (torchvision's FrozenBatchNorm2d
+    trains none of them). In training mode the affine follows the
+    reference's mixed precision: gain and shift in the input's dtype, the
+    statistics in f32, or in the input's dtype too where ``cast_stats`` is
+    set (Faster R-CNN, whose reference casts every leaf). Outside autograd
+    the eval affine is cached per dtype; under autograd it is recomputed on
+    every call, so no graph outlives its step.
 
     Its state_dict keys are BatchNorm2d's (``num_batches_tracked``
     included, as in a torchvision model built without pretrained weights;
@@ -276,24 +323,38 @@ class FrozenBatchNorm2d(nn.Module):
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(c))
-        self.register_buffer("bias", torch.zeros(c))
-        self.register_buffer("running_mean", torch.zeros(c))
-        self.register_buffer("running_var", torch.ones(c))
+        self.cast_stats = False
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.running_mean = nn.Parameter(torch.zeros(c))
+        self.running_var = nn.Parameter(torch.ones(c))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
         self._affine = {}
 
+    def affine(self, dtype):
+        """(scale, shift) as (C, 1, 1) tensors in ``dtype``."""
+        w, b, m, v = (self.weight, self.bias, self.running_mean,
+                      self.running_var)
+        if self.training and dtype != w.dtype:
+            w, b = w.to(dtype), b.to(dtype)
+            if self.cast_stats:
+                m, v = m.to(dtype), v.to(dtype)
+        scale = w * torch.rsqrt(v + self.eps)
+        shift = b - m * scale
+        return scale.to(dtype)[:, None, None], shift.to(dtype)[:, None, None]
+
     def forward(self, x):
+        if self.training or (torch.is_grad_enabled()
+                             and self.weight.requires_grad):
+            scale, shift = self.affine(x.dtype)
+            return x * scale + shift
         src = [self.weight, self.bias, self.running_mean, self.running_var]
         stamp = tuple((t.data_ptr(), t._version) for t in src)
         hit = self._affine.get(x.dtype)
         if hit is None or hit[0] != stamp:
-            w, b, m, v = src
-            scale = w * torch.rsqrt(v + self.eps)
-            shift = b - m * scale
-            hit = (stamp, scale.to(x.dtype)[:, None, None],
-                   shift.to(x.dtype)[:, None, None])
+            with torch.no_grad():
+                hit = (stamp,) + self.affine(x.dtype)
             self._affine[x.dtype] = hit
         return x * hit[1] + hit[2]
 

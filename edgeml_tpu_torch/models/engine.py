@@ -1,16 +1,17 @@
 """Family-generic training and evaluation engine.
 
-The reference package's ``models/engine.py`` for the two edge detectors
-(YOLOv5 and SSDLite320): a detector by family name, one train step per
-family (forward, loss, backward and update in one call, lr an argument),
-``train_one_epoch`` with the MetricLogger, and ``evaluate``, which serves
-in-memory images through the port's serving path (the suppressor and
-row-gather kernels on a CUDA device) into ``eval_coco.DetectionEvaluator``.
-RetinaNet and Faster R-CNN training are not yet ported.
+The reference package's ``models/engine.py`` for its four families
+(YOLOv5, SSDLite320, and the ResNet50-FPN-v2 RetinaNet and Faster R-CNN): a
+detector by family name, one train step per family (forward, loss,
+backward and update in one call, lr an argument), ``train_one_epoch`` with
+the MetricLogger, and ``evaluate``, which serves in-memory images through
+the port's serving path (the suppressor and row-gather kernels on a CUDA
+device) into ``eval_coco.DetectionEvaluator``.
 
 Target protocol: every family consumes the padded (B, MAXT, 5) normalised
-[cls, x, y, w, h] rows and validity that ``pad_targets`` makes; SSDLite
-trains on pixel xyxy boxes with 1-based labels, converted inside its step.
+[cls, x, y, w, h] rows and validity that ``pad_targets`` makes; SSDLite,
+RetinaNet and Faster R-CNN train on pixel xyxy boxes with 1-based labels
+(``num_classes + 1`` columns), converted inside their steps.
 """
 
 from __future__ import annotations
@@ -21,7 +22,10 @@ import numpy as np
 import torch
 
 from ..parallel.meters import MetricLogger
+from .faster_rcnn import PRE_NMS, FasterRCNN
 from .loss import yolo_loss
+from .rcnn_loss import faster_rcnn_loss, rcnn_forward, uniform_draws
+from .retinanet import RetinaNet, retina_loss
 from .ssd_loss import ssd_loss
 from .ssdlite import SSDLite
 from .train import TrainConfig, make_optimizer
@@ -31,9 +35,10 @@ from .yolov5 import YoloV5
 def make_detector(name: str, num_classes: int, img_size: int,
                   generator: torch.Generator | None = None):
     """The training model of a family name, seeded from ``generator``:
-    ``yolov5{n,s,m,l,x}`` at ``img_size``, or ``ssd`` (SSDLite with
+    ``yolov5{n,s,m,l,x}`` at ``img_size``, ``ssd`` (SSDLite with
     num_classes + 1 classes at min(img_size, 320), the full MobileNet
-    tail)."""
+    tail), or ``retinanet`` / ``faster_rcnn`` with num_classes + 1 classes
+    at ``img_size``."""
     if name.startswith("yolov5"):
         return YoloV5(variant=name.replace("yolov5", "") or "n",
                       num_classes=num_classes, img_size=img_size,
@@ -42,9 +47,12 @@ def make_detector(name: str, num_classes: int, img_size: int,
         return SSDLite(num_classes=num_classes + 1,
                        image_size=min(img_size, 320), reduced_tail=False,
                        generator=generator)
-    if name in ("retinanet", "faster_rcnn"):
-        raise RuntimeError(f"training '{name}' is not yet ported "
-                           f"(yolov5* and ssd are)")
+    if name == "retinanet":
+        return RetinaNet(num_classes=num_classes + 1, image_size=img_size,
+                         generator=generator)
+    if name == "faster_rcnn":
+        return FasterRCNN(num_classes=num_classes + 1, image_size=img_size,
+                          generator=generator)
     raise RuntimeError(f"unknown detector family '{name}'")
 
 
@@ -60,23 +68,47 @@ def _to_xyxy_px(targets, size):
 class TrainStep:
     """One training step of a family: ``step(images, targets, valid, lr)
     -> (loss, parts)`` runs the training forward (``forward``), the loss
-    (``loss``), the gradients of the parameters and the optimiser's update,
-    and leaves the new weights and BatchNorm statistics in the net.
+    (``loss``), the gradients of the trained parameters and the
+    optimiser's update, and leaves the new weights (and YOLOv5's and
+    SSDLite's BatchNorm statistics) in the net.
 
     dtype: optional compute dtype (torch.bfloat16) for the forward and
     backward; master weights, gradients, optimiser state, BatchNorm
-    statistics and the loss stay f32."""
+    statistics and the loss stay f32. Each module casts its own f32
+    weights with autograd (the reference's ``amp_cast``); RetinaNet's
+    frozen statistics stay f32, Faster R-CNN's are cast with the rest, as
+    the reference's two steps cast them. RetinaNet's logits and Faster
+    R-CNN's RPN and box-head outputs go back to f32 before any decision.
 
-    def __init__(self, net, opt, dtype=None):
+    Faster R-CNN: ``forward`` is the trunk and the RPN head
+    (``rcnn_forward``); ``loss`` the proposals, the two samplings, the
+    RoIAlign and box head and the four losses (``faster_rcnn_loss``),
+    drawing its sampling ranks with ``draw_fn(b, n_rpn, n_roi, device)``:
+    by default from a ``torch.Generator`` on the net's device seeded with
+    ``seed``; a caller may replace it to inject draws."""
+
+    def __init__(self, net, opt, dtype=None, seed: int = 0):
         self.net, self.opt, self.dtype = net, opt, dtype
         if isinstance(net, YoloV5):
             self.loss = self._yolo_loss
         elif isinstance(net, SSDLite):
             self.loss = self._ssd_loss
+        elif isinstance(net, RetinaNet):
+            self.loss = self._retina_loss
+        elif isinstance(net, FasterRCNN):
+            self.loss = self._rcnn_loss
+            self.seed = seed
+            self.generator = None
+            self.draw_fn = self._draws
         else:
             raise RuntimeError(f"no train step for {type(net).__name__}")
 
     def forward(self, images):
+        if isinstance(self.net, RetinaNet):
+            return self.net(images if self.dtype is None
+                            else images.to(self.dtype))
+        if isinstance(self.net, FasterRCNN):
+            return rcnn_forward(self.net, images, self.dtype)
         return self.net.train_forward(images, self.dtype)[0]
 
     def _yolo_loss(self, heads, targets, valid):
@@ -86,6 +118,30 @@ class TrainStep:
         boxes, cls = _to_xyxy_px(targets, self.net.image_size)
         return ssd_loss(self.net, out[0], out[1],
                         self.net.anchors(targets.device), boxes, cls, valid)
+
+    def _retina_loss(self, out, targets, valid):
+        boxes, cls = _to_xyxy_px(targets, self.net.image_size)
+        return retina_loss(self.net, out[0].to(torch.float32),
+                           out[1].to(torch.float32),
+                           self.net.anchors(targets.device), boxes, cls,
+                           valid)
+
+    def _draws(self, b, n_rpn, n_roi, device):
+        if self.generator is None or self.generator.device != device:
+            self.generator = torch.Generator(device=device).manual_seed(
+                self.seed)
+        return uniform_draws(self.generator, b, n_rpn, n_roi, device)
+
+    def _rcnn_loss(self, out, targets, valid):
+        feats, objs, regs = out
+        net = self.net
+        boxes, cls = _to_xyxy_px(targets, net.image_size)
+        n_rpn = sum(o.shape[1] for o in objs)
+        n_roi = min(net.rpn_post_nms, sum(min(PRE_NMS, o.shape[1])
+                                          for o in objs)) + boxes.shape[1]
+        draws = self.draw_fn(boxes.shape[0], n_rpn, n_roi, boxes.device)
+        return faster_rcnn_loss(net, feats, objs, regs, boxes, cls, valid,
+                                draws, self.dtype)
 
     def grads(self, total):
         return torch.autograd.grad(total, self.opt.params)
@@ -97,10 +153,10 @@ class TrainStep:
         return total.detach(), {k: v.detach() for k, v in parts.items()}
 
 
-def make_family_train_step(net, cfg: TrainConfig, dtype=None):
+def make_family_train_step(net, cfg: TrainConfig, dtype=None, seed: int = 0):
     """(optimizer, step) for ``net``'s family; see ``TrainStep``."""
     opt = make_optimizer(cfg, net)
-    return opt, TrainStep(net, opt, dtype)
+    return opt, TrainStep(net, opt, dtype, seed)
 
 
 @torch.no_grad()
@@ -110,9 +166,10 @@ def evaluate(net, images, gt_rows, batch_size: int = 8,
     [cls, x, y, w, h] per image): the evaluator's AP summary dict.
 
     Serves through the port's serving path on the net's device: YOLOv5
-    letterboxed (``infer.detect_batch``), SSDLite square-resized and
-    normalised (``infer._detect_generic``); the last batch is padded with
-    its last image. The net is left in the mode it came in."""
+    letterboxed (``infer.detect_batch``), SSDLite, RetinaNet and Faster
+    R-CNN square-resized and normalised (``infer._detect_generic``, their
+    ``detect`` tails); the last batch is padded with its last image. The
+    net is left in the mode it came in."""
     from ..eval_coco import DetectionEvaluator
     from .common import letterbox_batch
     from .infer import _detect_generic, detect_batch, square_batch

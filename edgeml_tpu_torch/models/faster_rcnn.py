@@ -28,7 +28,11 @@ Serving, with every decision in f32 (``FasterRCNN.detect``):
 Module names follow torchvision (``backbone``, ``rpn.head.conv.{0,1}.0``,
 ``rpn.head.cls_logits``, ``rpn.head.bbox_pred``, ``roi_heads.box_head.{0..3,
 5}``, ``roi_heads.box_predictor.{cls_score,bbox_pred}``), so a torchvision
-state_dict loads by key. Left out: the losses and RoI sampling of training.
+state_dict loads by key. Training (``models/rcnn_loss.py``) runs the same
+stages under autograd; every norm of the model is frozen (the body's
+``FrozenBatchNorm2d``, and the FPN's and box head's identity norms, which
+hold the reference's conv biases), and under bf16 every parameter, the
+frozen statistics included, is cast as the reference casts its whole tree.
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ from ..ops.gather import gather_rows
 from ..ops.nms import _scalar, nms_rows, topk1d
 from ..ops.nms_seq import suppress_mask_seq
 from .common import (
-    ConvNormAct, DtypeConv2d, DtypeLinear, load_jax_conv, seeded_init_,
+    ConvNormAct, DtypeConv2d, DtypeLinear, FrozenBatchNorm2d, host_array,
+    jax_conv, load_jax_conv, seeded_init_,
 )
 from .resnet import FPN_CHANNELS, ResNet50FPN
 
@@ -99,6 +104,24 @@ def decode(reg, anchors, weights):
     w = torch.exp(torch.clamp(reg[..., 2] / ww, max=clip)) * aw
     h = torch.exp(torch.clamp(reg[..., 3] / wh, max=clip)) * ah
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
+def encode(gt, anchors, weights):
+    """xyxy boxes -> weighted deltas on xyxy reference boxes (the inverse of
+    ``decode``); reference and GT widths and heights floored at 1e-6, so a
+    degenerate (zero-padded) reference box gives finite targets that the
+    losses' zero weights remove."""
+    wx, wy, ww, wh = weights
+    acx = (anchors[..., 0] + anchors[..., 2]) * 0.5
+    acy = (anchors[..., 1] + anchors[..., 3]) * 0.5
+    aw = torch.clamp_min(anchors[..., 2] - anchors[..., 0], 1e-6)
+    ah = torch.clamp_min(anchors[..., 3] - anchors[..., 1], 1e-6)
+    gcx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gcy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = torch.clamp_min(gt[..., 2] - gt[..., 0], 1e-6)
+    gh = torch.clamp_min(gt[..., 3] - gt[..., 1], 1e-6)
+    return torch.stack([wx * (gcx - acx) / aw, wy * (gcy - acy) / ah,
+                        ww * torch.log(gw / aw), wh * torch.log(gh / ah)], -1)
 
 
 def _pyramid(feats, pyr_dtype=None):
@@ -243,7 +266,7 @@ class RoIHeads(nn.Module):
         super().__init__()
         self.box_head = nn.Sequential(
             *(ConvNormAct(FPN_CHANNELS, FPN_CHANNELS, 3, act="relu",
-                          eps=1e-5) for _ in range(4)),
+                          eps=1e-5, frozen=True) for _ in range(4)),
             nn.Flatten(),
             DtypeLinear(FPN_CHANNELS * ROI_OUT * ROI_OUT, 1024),
             nn.ReLU())
@@ -266,16 +289,24 @@ class FasterRCNN(nn.Module):
                                     fpn_norm=True)
         self.rpn = RegionProposalNetwork()
         self.roi_heads = RoIHeads(num_classes)
+        for m in self.modules():
+            if isinstance(m, FrozenBatchNorm2d):
+                m.cast_stats = True
         self.reset_parameters(generator)
         self.eval()
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Seeded init as the reference's: conv weights uniform in
-        +-1/sqrt(fan_in), BatchNorm identity, the fc uniform in
-        +-1/sqrt(12544), class and box predictors normal with std 0.01 and
-        0.001, every bias zero."""
+        +-1/sqrt(fan_in), BatchNorm identity (the FPN's and box head's norms
+        exact: var 1 - eps, so conv + norm is conv + bias), the fc uniform
+        in +-1/sqrt(12544), class and box predictors normal with std 0.01
+        and 0.001, every bias zero."""
         seeded_init_(self, generator)
+        for m in self.modules():
+            if isinstance(m, ConvNormAct) and m.frozen:
+                m[1].running_var.fill_(
+                    float(np.float32(1.0) - np.float32(m[1].eps)))
         fc = self.roi_heads.box_head[5]
         bound = 1.0 / math.sqrt(fc.in_features)
         fc.weight.copy_(torch.empty(fc.weight.shape).uniform_(
@@ -460,3 +491,28 @@ class FasterRCNN(nn.Module):
             lin.weight.copy_(arr(bh[key]["w"]).T)
             lin.bias.copy_(arr(bh[key]["b"]))
         return self
+
+    @torch.no_grad()
+    def to_jax_params(self):
+        """(params, None): the reference package's parameter tree of this
+        module (its frozen-norm family keeps no statistics tree), the exact
+        inverse of ``from_jax_params``: the identity norms' biases back on
+        their convs, the fc back in the (H, W, C)-major flatten."""
+        head = self.rpn.head
+        rpn = {"conv1": jax_conv(head.conv[0][0]),
+               "conv2": jax_conv(head.conv[1][0]),
+               "cls": jax_conv(head.cls_logits),
+               "reg": jax_conv(head.bbox_pred)}
+        box_head = self.roi_heads.box_head
+        fc = box_head[5]
+        w = fc.weight.reshape(-1, FPN_CHANNELS, ROI_OUT, ROI_OUT)
+        pred = self.roi_heads.box_predictor
+        bh = {"convs": [jax_conv(blk[0], blk[1]) for blk in box_head[:4]],
+              "fc": {"w": host_array(w.permute(2, 3, 1, 0).reshape(
+                  -1, fc.weight.shape[0])), "b": host_array(fc.bias)},
+              "cls": {"w": host_array(pred.cls_score.weight.T),
+                      "b": host_array(pred.cls_score.bias)},
+              "reg": {"w": host_array(pred.bbox_pred.weight.T),
+                      "b": host_array(pred.bbox_pred.bias)}}
+        return {"backbone": self.backbone.to_jax_params(), "rpn": rpn,
+                "box_head": bh}, None

@@ -31,7 +31,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .common import (
-    ConvNormAct, DtypeConv2d, FrozenBatchNorm2d, load_jax_conv, upsample2x,
+    ConvNormAct, DtypeConv2d, FrozenBatchNorm2d, host_array, jax_conv,
+    load_jax_conv, upsample2x,
 )
 
 STAGE_BLOCKS = (3, 4, 6, 3)
@@ -110,7 +111,8 @@ class FeaturePyramid(nn.Module):
 
         def block(cin, k):
             if norm:
-                return ConvNormAct(cin, out, k, act=None, eps=1e-5)
+                return ConvNormAct(cin, out, k, act=None, eps=1e-5,
+                                   frozen=True)
             return nn.Sequential(DtypeConv2d(cin, out, k, 1, k // 2))
 
         self.inner_blocks = nn.ModuleList(block(c, 1) for c in in_channels)
@@ -183,3 +185,38 @@ class ResNet50FPN(nn.Module):
             load_jax_conv(fpn.extra_blocks.p6, bp["p6"])
             load_jax_conv(fpn.extra_blocks.p7, bp["p7"])
         return self
+
+    @torch.no_grad()
+    def to_jax_params(self) -> dict:
+        """The reference's backbone parameter tree of this module: the
+        exact inverse of ``from_jax_params`` (HWIO kernels, frozen
+        BatchNorm as g/b/m/v, FPN convs with their biases)."""
+
+        def frozen(conv, bn):
+            return {"w": host_array(conv.weight.permute(2, 3, 1, 0)),
+                    "g": host_array(bn.weight), "b": host_array(bn.bias),
+                    "m": host_array(bn.running_mean),
+                    "v": host_array(bn.running_var)}
+
+        body = self.body
+        stages = []
+        for si in range(len(STAGE_BLOCKS)):
+            blocks = []
+            for blk in getattr(body, f"layer{si + 1}"):
+                p = {"conv1": frozen(blk.conv1, blk.bn1),
+                     "conv2": frozen(blk.conv2, blk.bn2),
+                     "conv3": frozen(blk.conv3, blk.bn3)}
+                if blk.downsample is not None:
+                    p["down"] = frozen(blk.downsample[0], blk.downsample[1])
+                blocks.append(p)
+            stages.append(blocks)
+        fpn = self.fpn
+        bp = {"stem": frozen(body.conv1, body.bn1), "stages": stages}
+        for key, mods in (("fpn_lateral", fpn.inner_blocks),
+                          ("fpn_output", fpn.layer_blocks)):
+            bp[key] = [jax_conv(m[0], m[1] if len(m) > 1 else None)
+                       for m in mods]
+        if fpn.extra == "p6p7":
+            bp["p6"] = jax_conv(fpn.extra_blocks.p6)
+            bp["p7"] = jax_conv(fpn.extra_blocks.p7)
+        return bp

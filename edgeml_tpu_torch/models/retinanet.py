@@ -4,15 +4,25 @@ One of the reference's strong detectors. Structure per torchvision v2:
 ResNet50-FPN with P6/P7 (``models/resnet.py``), shared heads of four 3x3
 convs + GroupNorm(32) + ReLU per branch, 9 anchors per location (sizes
 {2^0, 2^(1/3), 2^(2/3)} x 32..512 over P3..P7, aspect ratios 0.5/1/2), box
-deltas with weights (1, 1, 1, 1). torchvision's tower convs carry no bias
-(GroupNorm follows); the reference's are zero at init and after its
-torchvision import, so ``from_jax_params`` refuses nonzero ones.
+deltas with weights (1, 1, 1, 1). The tower convs carry the reference's
+conv bias, added before the GroupNorm (``TowerConv``): zero at init and
+after a torchvision import, but trained by the reference's train step. The
+bias stays out of ``state_dict()``, whose layout is torchvision's (which
+has no tower bias), and loading a state_dict sets it to zero; it is carried
+by ``from_jax_params`` / ``to_jax_params`` and by checkpoints in the
+reference's tree layout.
 
 Module names follow torchvision's ``retinanet_resnet50_fpn_v2``
 (``backbone``, ``head.classification_head.{conv,cls_logits}``,
 ``head.regression_head.{conv,bbox_reg}``). The forward takes NHWC images and
 returns (cls_logits (B, A, C), reg (B, A, 4)), rows ordered level, h, w,
 anchor.
+
+Training (``retina_match``, ``encode_boxes``, ``retina_loss``): the
+reference's matcher (0.5 / 0.4 with low-quality matches), sigmoid focal
+loss (alpha 0.25, gamma 2) over the anchors not ignored and smooth-L1
+(beta 1/9) box regression on the matched, each over the foreground count,
+batched over the images where the reference vmaps.
 
 Serving tail (``retina_postprocess``): the reference's raw-logit tail. The
 top 2048 boxes by max-class score are chosen from the row max of the logits
@@ -28,8 +38,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops.metrics import box_iou_safe
 from ..ops.nms import nms_split_batch, topk1d
-from .common import DtypeConv2d, DtypeGroupNorm, seeded_init_
+from .common import (
+    DtypeConv2d, DtypeGroupNorm, host_array, jax_conv, seeded_init_,
+)
 from .resnet import FPN_CHANNELS, ResNet50FPN
 
 ANCHOR_SIZES = (32, 64, 128, 256, 512)
@@ -65,10 +78,30 @@ def retina_anchors(image_size: int, strides=STRIDES):
     return np.concatenate(out)
 
 
+class TowerConv(DtypeConv2d):
+    """A head tower's 3x3 conv with the reference's bias, which
+    torchvision's layout lacks: the bias is left out of ``state_dict()``,
+    and a state_dict loaded into the module sets it to zero."""
+
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        super()._save_to_state_dict(destination, prefix, keep_vars)
+        destination.pop(prefix + "bias", None)
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata,
+                              strict, missing_keys, unexpected_keys,
+                              error_msgs):
+        super()._load_from_state_dict(state_dict, prefix, local_metadata,
+                                      strict, missing_keys, unexpected_keys,
+                                      error_msgs)
+        if prefix + "bias" in missing_keys:
+            missing_keys.remove(prefix + "bias")
+            with torch.no_grad():
+                self.bias.zero_()
+
+
 def _tower() -> nn.Sequential:
     return nn.Sequential(*(
-        nn.Sequential(DtypeConv2d(FPN_CHANNELS, FPN_CHANNELS, 3, 1, 1,
-                                  bias=False),
+        nn.Sequential(TowerConv(FPN_CHANNELS, FPN_CHANNELS, 3, 1, 1),
                       DtypeGroupNorm(32, FPN_CHANNELS))
         for _ in range(4)))
 
@@ -168,37 +201,131 @@ class RetinaNet(nn.Module):
 
     # ---- weights -----------------------------------------------------------
 
+    @staticmethod
+    def encode_boxes(gt, anchors):
+        """xyxy boxes -> (1, 1, 1, 1)-weighted deltas on xyxy anchors (the
+        inverse of ``decode_boxes``), GT widths and heights floored at
+        1e-6; ``anchors`` broadcasts against ``gt``."""
+        acx = (anchors[..., 0] + anchors[..., 2]) * 0.5
+        acy = (anchors[..., 1] + anchors[..., 3]) * 0.5
+        aw = anchors[..., 2] - anchors[..., 0]
+        ah = anchors[..., 3] - anchors[..., 1]
+        gcx = (gt[..., 0] + gt[..., 2]) * 0.5
+        gcy = (gt[..., 1] + gt[..., 3]) * 0.5
+        gw = torch.clamp_min(gt[..., 2] - gt[..., 0], 1e-6)
+        gh = torch.clamp_min(gt[..., 3] - gt[..., 1], 1e-6)
+        return torch.stack([(gcx - acx) / aw, (gcy - acy) / ah,
+                            torch.log(gw / aw), torch.log(gh / ah)], -1)
+
+    # ---- weights -----------------------------------------------------------
+
+    def _convs(self):
+        """(head, tower key, output conv, output key) per branch."""
+        return ((self.head.classification_head, "cls_tower",
+                 self.head.classification_head.cls_logits, "cls_out"),
+                (self.head.regression_head, "reg_tower",
+                 self.head.regression_head.bbox_reg, "reg_out"))
+
     @torch.no_grad()
     def from_jax_params(self, params):
         """Fill the module from the reference package's parameter tree
-        (nested dicts/lists of arrays, HWIO conv kernels). Raises if a tower
-        conv carries a nonzero bias, which torchvision's layout cannot
-        hold."""
+        (nested dicts/lists of arrays, HWIO conv kernels), tower conv
+        biases included."""
 
         def arr(a):
             return torch.from_numpy(np.array(a, dtype=np.float32))
 
         def conv(mod, p):
             mod.weight.copy_(arr(p["w"]).permute(3, 2, 0, 1))
-            if mod.bias is not None:
-                mod.bias.copy_(arr(p["b"]))
+            mod.bias.copy_(arr(p["b"]))
 
         self.backbone.from_jax_params(params["backbone"])
-        for head, tower, out, out_key in (
-                (self.head.classification_head, "cls_tower", "cls_logits",
-                 "cls_out"),
-                (self.head.regression_head, "reg_tower", "bbox_reg",
-                 "reg_out")):
+        for head, tower, out, out_key in self._convs():
             for (c, gn), p in zip(head.conv, params[tower]):
-                if np.any(np.asarray(p["b"]) != 0):
-                    raise ValueError(
-                        f"{tower}: nonzero tower conv bias; torchvision's "
-                        f"RetinaNet head has no bias there")
                 conv(c, p)
                 gn.weight.copy_(arr(p["gn"]["g"]))
                 gn.bias.copy_(arr(p["gn"]["b"]))
-            conv(getattr(head, out), params[out_key])
+            conv(out, params[out_key])
         return self
+
+    @torch.no_grad()
+    def to_jax_params(self):
+        """(params, None): the reference package's parameter tree of this
+        module (its frozen-norm family keeps no statistics tree), the
+        exact inverse of ``from_jax_params``."""
+        params = {"backbone": self.backbone.to_jax_params()}
+        for head, tower, out, out_key in self._convs():
+            params[tower] = [
+                dict(jax_conv(c), gn={"g": host_array(gn.weight),
+                                      "b": host_array(gn.bias)})
+                for c, gn in head.conv]
+            params[out_key] = jax_conv(out)
+        return params, None
+
+
+def retina_match(anchors, gt_boxes, gt_valid, hi: float = 0.5,
+                 lo: float = 0.4):
+    """The reference's Matcher(hi, lo, allow_low_quality_matches=True),
+    batched: per image and anchor the matched GT index, -1 background, -2
+    ignored (between the thresholds); anchors tying a GT's best IoU are
+    matched to their own best GT.
+
+    :param anchors: (A, 4) xyxy; gt_boxes (B, M, 4); gt_valid (B, M) bool.
+    :return: (B, A) int64.
+    """
+    iou = box_iou_safe(gt_boxes, anchors.expand(gt_boxes.shape[0], -1, -1))
+    iou = torch.where(gt_valid[:, :, None], iou, -1.0)  # (B, M, A)
+    best_iou, best_gt = iou.max(dim=1)
+    # max's index is not promised to be the first on ties: take it so
+    m = gt_boxes.shape[1]
+    gt_idx = torch.arange(m, device=iou.device)[None, :, None]
+    best_gt = torch.where(iou == best_iou[:, None, :], gt_idx, m).amin(1)
+    matches = torch.where(best_iou >= hi, best_gt,
+                          torch.where(best_iou < lo, -1, -2))
+    gt_best = iou.amax(dim=2, keepdim=True)  # (B, M, 1)
+    low_q = ((iou == gt_best) & (gt_best > 0)
+             & gt_valid[:, :, None]).any(dim=1)
+    return torch.where(low_q, best_gt, matches)
+
+
+def retina_loss(net, cls_logits, reg, anchors, gt_boxes, gt_cls, gt_valid):
+    """Sigmoid focal classification over the anchors not ignored plus
+    smooth-L1 regression on the matched, each over the image's foreground
+    count, then averaged over the images, as the reference computes them.
+
+    :param cls_logits: (B, A, C) f32; reg (B, A, 4) f32; anchors (A, 4).
+    :param gt_boxes: (B, M, 4) xyxy pixels; gt_cls (B, M) label ids in the
+        logits' columns (the engine passes 1-based ids into num_classes + 1
+        columns); gt_valid (B, M) bool.
+    :return: (total, {"classification", "bbox_regression"}).
+    """
+    alpha, gamma = 0.25, 2.0
+    nc = cls_logits.shape[-1]
+    match = retina_match(anchors, gt_boxes, gt_valid)  # (B, A)
+    fg = match >= 0
+    num_fg = torch.clamp_min(fg.sum(1), 1).to(cls_logits.dtype)  # (B,)
+    midx = torch.clamp_min(match, 0)
+    cls_m = torch.gather(gt_cls.long(), 1, midx)
+    target = torch.nn.functional.one_hot(
+        torch.where(fg, cls_m, nc), nc + 1)[..., :nc].to(cls_logits.dtype)
+    cl = cls_logits
+    p = torch.sigmoid(cl)
+    ce = torch.clamp_min(cl, 0) - cl * target \
+        + torch.log1p(torch.exp(-torch.abs(cl)))
+    p_t = p * target + (1 - p) * (1 - target)
+    a_t = alpha * target + (1 - alpha) * (1 - target)
+    focal = a_t * (1 - p_t) ** gamma * ce
+    consider = (match != -2).to(cl.dtype)
+    cls_l = torch.sum(focal * consider[..., None], dim=(1, 2)) / num_fg
+
+    gb = torch.gather(gt_boxes, 1, midx[..., None].expand(-1, -1, 4))
+    d = reg - net.encode_boxes(gb, anchors)
+    ad = torch.abs(d)
+    sl1 = torch.where(ad < 1.0 / 9.0, 4.5 * d * d, ad - 1.0 / 18.0)
+    box_l = torch.sum(sl1.sum(-1) * fg, dim=1) / num_fg
+    cls_mean, box_mean = cls_l.mean(), box_l.mean()
+    return cls_mean + box_mean, {"classification": cls_mean,
+                                 "bbox_regression": box_mean}
 
 
 def retina_nms_inputs(net, cls_logits, reg, anchors, score_thresh: float):

@@ -13,7 +13,9 @@ differ only by the rounding of the gradients they are given. Checkpoints
 are pickles whose ``model`` and ``ema`` hold NumPy arrays in the reference
 package's tree layout (``to_jax_params``), so either package's detect CLI
 serves them; ``optimizer`` is a plain dict of arrays keyed by parameter
-name. The reference's rematerialisation knob and its orbax directory
+name. The frozen-norm families (RetinaNet, Faster R-CNN) keep no
+statistics tree: their ``stats`` is None, and their EMA shadows the
+parameters alone. The reference's rematerialisation knob and its orbax directory
 format have no counterpart here (XLA- and JAX-specific).
 """
 
@@ -202,13 +204,17 @@ class Optimizer:
 
 
 def make_optimizer(cfg: TrainConfig, net: torch.nn.Module) -> Optimizer:
-    """The optimiser of ``cfg`` over ``net``'s parameters."""
-    return Optimizer(cfg, list(net.named_parameters()))
+    """The optimiser of ``cfg`` over ``net``'s trained parameters (those
+    that require a gradient: the leaves of the reference's parameter tree;
+    not the identity norms' fixed weights)."""
+    return Optimizer(cfg, [(n, p) for n, p in net.named_parameters()
+                           if p.requires_grad])
 
 
 def ema_state(module: torch.nn.Module):
-    """The tensors an EMA shadows: every parameter and every BatchNorm
-    running mean and variance, in a fixed order."""
+    """The tensors an EMA shadows: every parameter (the frozen norms' gain,
+    shift and statistics included) and every BatchNorm running mean and
+    variance, in a fixed order."""
     return [p for p in module.parameters()] + [
         b for k, b in module.named_buffers()
         if k.endswith(("running_mean", "running_var"))]
@@ -242,9 +248,13 @@ class ModelEMA:
             torch._foreach_sub(live, shadow), w))
 
     def payload(self) -> dict:
+        """{params[, stats], n_updates}: no stats key for the frozen-norm
+        families, whose reference EMA shadows the parameters alone."""
         params, stats = self.module.to_jax_params()
-        return {"params": params, "stats": stats,
-                "n_updates": np.asarray(self.n_updates)}
+        out = {"params": params, "n_updates": np.asarray(self.n_updates)}
+        if stats is not None:
+            out["stats"] = stats
+        return out
 
 
 def save_checkpoint(path: str, net, opt: Optimizer, cfg: TrainConfig,
@@ -308,6 +318,14 @@ def read_payload(path: str):
             and "params" in obj["model"]:
         return obj
     return None
+
+
+def load_jax_tree(net, params, stats=None):
+    """Fill ``net`` from the reference's (params, stats) trees; ``stats``
+    None for the frozen-norm families."""
+    if stats is None:
+        return net.from_jax_params(params)
+    return net.from_jax_params(params, stats)
 
 
 def load_checkpoint(path: str):

@@ -1,8 +1,9 @@
 """The port's training engine and meters against the JAX package's:
 ``evaluate`` (YOLOv5n, 4 classes, 64 px letterbox; SSDLite, 8 classes +
 background, 64 px square resize) on ragged images with weights carried from
-the JAX init, ``_to_xyxy_px``, ``make_detector``, ``train_one_epoch`` and
-the meters.
+the JAX init, ``_to_xyxy_px``, ``make_detector`` (each family builds, and
+RetinaNet and Faster R-CNN train a step), ``train_one_epoch`` and the
+meters.
 
 Tolerances: each AP within 3e-5 (the mAP core's) for YOLOv5n; 1e-4 for
 SSDLite, whose JAX evaluation resizes with ``jax.image.resize`` where the
@@ -23,6 +24,8 @@ from edgeml_tpu.models.ssdlite import SSDLite as JaxSSDLite
 from edgeml_tpu.models.yolov5 import YoloV5 as JaxYoloV5
 from edgeml_tpu.parallel import meters as jmeters
 from edgeml_tpu_torch.models import engine as tengine
+from edgeml_tpu_torch.models.faster_rcnn import FasterRCNN
+from edgeml_tpu_torch.models.retinanet import RetinaNet
 from edgeml_tpu_torch.models.ssdlite import SSDLite
 from edgeml_tpu_torch.models.train import TrainConfig
 from edgeml_tpu_torch.models.yolov5 import YoloV5
@@ -133,9 +136,22 @@ def test_make_detector_families():
     s = tengine.make_detector("ssd", 20, 640)
     assert isinstance(s, SSDLite) and s.num_classes == 21
     assert s.image_size == 320 and not s.reduced_tail
-    for name in ("retinanet", "faster_rcnn"):
-        with pytest.raises(RuntimeError, match="not yet ported"):
-            tengine.make_detector(name, 20, 64)
+    # the frozen-norm families: num_classes + 1 classes at img_size, and
+    # one step of each trains (batch 1, one padding target row)
+    tg = torch.tensor([[[2.0, 0.5, 0.5, 0.4, 0.5], [0.0] * 5]])
+    valid = torch.tensor([[True, False]])
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1, (1, 64, 64, 3)).astype(np.float32))
+    for name, cls in (("retinanet", RetinaNet), ("faster_rcnn", FasterRCNN)):
+        net = tengine.make_detector(name, 20, 64, generator=g)
+        assert isinstance(net, cls) and net.num_classes == 21
+        assert net.image_size == 64
+        opt, step = tengine.make_family_train_step(net, TrainConfig(lr=0.01))
+        before = [p.detach().clone() for p in opt.params]
+        loss, parts = step(x, tg, valid, 0.01)
+        assert np.isfinite(float(loss)) and len(parts) >= 2
+        assert all(np.isfinite(float(v)) for v in parts.values())
+        assert any(not torch.equal(a, b) for a, b in zip(before, opt.params))
     with pytest.raises(RuntimeError, match="unknown"):
         tengine.make_detector("vgg", 20, 64)
 

@@ -1346,3 +1346,126 @@ def test_evaluate_launches_kernels_and_equals_cpu(cuda, family):
     want = evaluate(net, images, gts, batch_size=4)
     for k in ("map", "map50", "map75"):
         assert abs(got[k] - want[k]) <= 3e-5, k
+
+
+# ---- training of the frozen-norm families (RetinaNet, Faster R-CNN) ------
+
+
+def _frozen_net(family, seed=3):
+    from edgeml_tpu_torch.models.engine import make_detector
+
+    net = make_detector(family, 6, 128,
+                        generator=torch.Generator().manual_seed(seed))
+    if family == "faster_rcnn":
+        net.rpn_post_nms = 64
+    return net
+
+
+def _frozen_draws(net, b, t, seed=4):
+    """One step's sampling draws for ``net``'s family (None for RetinaNet),
+    made on the CPU."""
+    from edgeml_tpu_torch.models.rcnn_loss import uniform_draws
+
+    if not isinstance(net, tfr.FasterRCNN):
+        return None
+    n_rpn = sum(len(a) for a in tfr.rpn_anchors(net.image_size))
+    return uniform_draws(torch.Generator().manual_seed(seed), b, n_rpn,
+                         net.rpn_post_nms + t, "cpu")
+
+
+@pytest.mark.parametrize("family", ["retinanet", "faster_rcnn"])
+def test_frozen_train_step_card_vs_cpu(cuda, family):
+    """One SGD step of RetinaNet / Faster R-CNN (6 classes + background,
+    128 px, batch 2, full width) on the card and on the CPU from the same
+    weights and the same sampling draws: the loss within 1e-5 relative;
+    the update (every trained tensor at once) within 1e-2 of the CPU
+    update's norm (read on an NVIDIA H100 80GB HBM3: RetinaNet 2.35e-03,
+    where 128 px puts a few pre-activations on the other side of a ReLU
+    than the CPU's; 1.5e-05 at 256 px in ``chip_smoke.py``)."""
+    import copy
+
+    from edgeml_tpu_torch.models.engine import make_family_train_step
+    from edgeml_tpu_torch.models.train import TrainConfig
+
+    net = _frozen_net(family)
+    before = [p.detach().clone() for p in net.parameters()]
+    nets = {"cpu": net, "cuda": copy.deepcopy(net).to(cuda)}
+    x, tg, v = _train_batch(5, s=128)
+    draws = _frozen_draws(net, 2, 5)
+    out = {}
+    for dev, n in nets.items():
+        _, step = make_family_train_step(n, TrainConfig())
+        if draws is not None:
+            step.draw_fn = lambda *a, dev=dev: type(draws)(
+                *(d.to(dev) for d in draws))
+        loss, _ = step(x.to(dev), tg.to(dev), v.to(dev), 0.02)
+        out[dev] = float(loss)
+        assert loss.device.type == dev
+    assert abs(out["cuda"] - out["cpu"]) <= 1e-5 * out["cpu"]
+    sq_d = sq_u = 0.0
+    for a, b, p in zip(nets["cuda"].parameters(), nets["cpu"].parameters(),
+                       before):
+        sq_d += float(((a.detach().cpu() - b.detach()).double() ** 2).sum())
+        sq_u += float(((b.detach() - p).double() ** 2).sum())
+    err = (sq_d / sq_u) ** 0.5
+    print(f"{family}: loss {abs(out['cuda'] - out['cpu']) / out['cpu']:.3e}"
+          f", update {err:.3e}")
+    assert sq_u > 0 and err <= 1e-2
+
+
+def test_frcnn_step_proposals_kernel_equals_plain(cuda, monkeypatch):
+    """The Faster R-CNN train step's proposals on the card: one launch of
+    the sequential suppressor and three of the row gather a step, and the
+    same boxes and masks as the plain versions on the step's own RPN
+    outputs."""
+    from edgeml_tpu_torch.models.engine import make_family_train_step
+    from edgeml_tpu_torch.models.train import TrainConfig
+
+    net = _frozen_net("faster_rcnn").to(cuda)
+    _, step = make_family_train_step(net, TrainConfig())
+    draws = _frozen_draws(net, 2, 5)
+    step.draw_fn = lambda *a: type(draws)(*(d.to(cuda) for d in draws))
+    x, tg, v = (t.to(cuda) for t in _train_batch(6, s=128))
+    c0 = _counts()
+    step(x, tg, v, 0.02)
+    torch.cuda.synchronize()
+    c1 = _counts()
+    assert (c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2],
+            c1[3] - c0[3]) == (1, 0, 0, 3)
+    net.train()
+    with torch.no_grad():
+        _, objs, regs = step.forward(x)
+        boxes, valid = net.proposals(objs, regs)
+        _Plain(monkeypatch)
+        p_boxes, p_valid = net.proposals(objs, regs)
+    assert torch.equal(boxes, p_boxes) and torch.equal(valid, p_valid)
+    assert int(valid.sum()) == 2 * net.rpn_post_nms
+
+
+@pytest.mark.parametrize("family", ["retinanet", "faster_rcnn"])
+def test_frozen_train_cli_on_cuda_and_served(cuda, tmp_path, family):
+    """The train CLI on the card by default (no --device), --ema --bf16,
+    then the detect CLI serves its checkpoint on the card."""
+    from edgeml_tpu_torch.cli import detect as detect_cli
+    from edgeml_tpu_torch.cli import train as train_cli
+
+    rng = np.random.default_rng(7)
+    img_dir, lab_dir = tmp_path / "images", tmp_path / "labels"
+    img_dir.mkdir()
+    lab_dir.mkdir()
+    for i in range(4):
+        np.save(img_dir / f"im{i}.npy",
+                rng.random((96, 96, 3)).astype(np.float32))
+        (lab_dir / f"im{i}.txt").write_text("1 0.5 0.5 0.3 0.4\n")
+    res = train_cli.main(train_cli.getargs(
+        [str(img_dir), str(tmp_path / "out"), "--label-dir", str(lab_dir),
+         "--model", family, "-b", "2", "--img-size", "128", "--epochs",
+         "2", "--ema", "--bf16"]))
+    assert next(res["state"].parameters()).device.type == "cuda"
+    assert all(np.isfinite(res["epoch_loss"]))
+    assert res["ema"].n_updates == 4
+    detect_cli.main(detect_cli.getargs(
+        [str(img_dir), str(tmp_path / "dets"), "--model", family,
+         "--dataset", "voc", "--model-path",
+         str(tmp_path / "out" / "checkpoint.pth"), "--batch-size", "2"]))
+    assert len(os.listdir(tmp_path / "dets")) == 4

@@ -51,7 +51,8 @@ def _numpy_tree(t):
 
 def _spread(params, rng):
     """Random frozen-BN statistics/affines, GroupNorm affines and head
-    biases (tower conv biases stay zero: torchvision has none there)."""
+    biases (tower conv biases stay zero, as after a torchvision import;
+    ``test_from_jax_params_carries_tower_bias`` sets them)."""
 
     def bn(p):
         c = p["g"].shape
@@ -204,11 +205,29 @@ def test_state_dict_layout_is_torchvision():
     assert float(net.backbone.body.bn1.running_var[0]) == 1.0
 
 
-def test_from_jax_params_refuses_tower_bias(model):
+def test_from_jax_params_carries_tower_bias(model):
+    """A nonzero tower conv bias (the reference trains it) is carried, and
+    added before the GroupNorm as the reference adds it: the heads equal
+    the JAX heads. It stays out of the torchvision-layout state_dict."""
     params = dict(model["params"])
     tower = [dict(layer) for layer in params["cls_tower"]]
     tower[2]["b"] = jnp.full((256,), 0.1)
     params["cls_tower"] = tower
-    with pytest.raises(ValueError, match="bias"):
-        RetinaNet(num_classes=NC, image_size=SIZE).from_jax_params(
-            _numpy_tree(params))
+    reg = [dict(layer) for layer in params["reg_tower"]]
+    reg[0]["b"] = jnp.asarray(np.random.default_rng(8).normal(0, 0.5, 256),
+                              jnp.float32)
+    params["reg_tower"] = reg
+    net = RetinaNet(num_classes=NC, image_size=SIZE).from_jax_params(
+        _numpy_tree(params))
+    want_c, want_r = jax.jit(model["jnet"].apply)(
+        params, jnp.asarray(model["x"]))
+    with torch.no_grad():
+        c, r = net(torch.from_numpy(model["x"]))
+    # a bias equal over a GroupNorm group is removed by the norm; one
+    # that differs within the groups moves the outputs
+    assert not np.allclose(np.asarray(want_r), model["reg"], atol=1e-2)
+    _close(c.numpy(), np.asarray(want_c), 1e-4)
+    _close(r.numpy(), np.asarray(want_r), 1e-4)
+    conv = net.head.classification_head.conv[2][0]
+    assert torch.equal(conv.bias, torch.full((256,), 0.1))
+    assert not any(k.endswith("conv.2.0.bias") for k in net.state_dict())

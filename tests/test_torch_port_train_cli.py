@@ -1,8 +1,8 @@
 """The port's train CLI (``python -m edgeml_tpu_torch.cli.train ... --device
 cpu``) on 8 images of 64 px: the checkpoint files and payload, --resume,
 every --augment, --preset yolo --ema --bf16, the ssd family, --voc-root,
-and the refusals (no CUDA device without --device cpu, the families not
-yet ported). The JAX package's CLIs on the same data:
+a step of RetinaNet and of Faster R-CNN, and the refusal (no CUDA device
+without --device cpu). The JAX package's CLIs on the same data:
 ``test_torch_port_train_cli_cross.py``.
 """
 
@@ -198,12 +198,21 @@ def test_voc_root(tmp_path):
 
 
 def test_refusals(dataset, tmp_path, monkeypatch):
+    """RetinaNet and Faster R-CNN, once refused, train a step each (two
+    images, batch 2) into a checkpoint without statistics; without a CUDA
+    device and without --device cpu the CLI raises."""
     img_dir, lab_dir = dataset
+    small = tmp_path / "two"
+    two_img, two_lab = write_dataset(small, n=2)
     for model in ("retinanet", "faster_rcnn"):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            train_cli.main(train_cli.getargs(
-                [img_dir, str(tmp_path), "--label-dir", lab_dir, "--model",
-                 model, "--device", "cpu"]))
+        res = train_cli.main(train_cli.getargs(
+            [two_img, str(small / model), "--label-dir", two_lab, "--model",
+             model, "-b", "2", "--img-size", str(IMG), "--epochs", "1",
+             "--device", "cpu"]))
+        assert len(res["epoch_loss"]) == 1
+        assert np.isfinite(res["epoch_loss"][0])
+        ck = load(small / model / "checkpoint.pth")
+        assert ck["model"]["stats"] is None and ck["epoch"] == 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.main(train_cli.getargs(

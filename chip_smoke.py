@@ -15,6 +15,13 @@ what comes out:
   * SSDLite320-MobileNetV3-Large serving (91 classes, COCO -> 80 class map)
     in f32 and bf16, through the blocked suppressor kernel (K = 2048, the
     same banded kernel as a cluster of 8);
+  * int8 post-training-quantized serving of YOLOv5n, YOLOv5m (int8 and
+    int8-bf16) and SSDLite320 (int8), calibrated on the first 16 images,
+    through the same suppressor and gather kernels: run_detection over the
+    256 images, the four serving dtypes timed on one batch, the int8
+    contraction (``torch._int_mm``) against its bound, every int8 conv on
+    the card against the CPU's from the same input, and the detect CLI with
+    ``--int8`` and ``--int8 --bf16``;
   * RetinaNet-ResNet50-FPN-v2 serving (91 classes, 640) in f32, through the
     blocked kernel, and one device-resident batch timed in f32 and bf16;
   * Faster R-CNN-ResNet50-FPN-v2 serving (91 classes, 640, 1000 proposals,
@@ -128,6 +135,7 @@ SEQ_SEGMENTS = 80  # 16 images x 5 RPN levels
 SEQ_K = 1000  # proposals per level entering the RPN suppressor
 FRCNN_BATCH = 16
 FRCNN_IMAGES = 64
+SMI = ""  # the card's name and power limit (nvidia-smi), set by main
 
 
 def line(tag, **kw):
@@ -627,12 +635,37 @@ def pair_rows(a, b, hw):
     return pairs, conf_err, box_err
 
 
+def rows_vs_cpu(tag, got, ref, hws, what):
+    """Detection rows on the card (got) against the CPU's (ref), image by
+    image (lists of (n, 6) arrays; images of sizes hws): the same rows up
+    to the card's rounding (see FILE_* above). Prints how many images have
+    the very same rows in the same order, the rows paired, and the paired
+    rows' largest conf and box errors."""
+    same = rows = unpaired = 0
+    conf_err = box_err = 0.0
+    for a, b, hw in zip(got, ref, hws):
+        if a.shape == b.shape and np.array_equal(a[:, 0], b[:, 0]) and \
+                np.abs(a[:, 5] - b[:, 5]).max(initial=0) <= FILE_CONF_TOL:
+            same += 1
+        pairs, ce, be = pair_rows(a, b, hw)
+        rows += max(len(a), len(b))
+        unpaired += max(len(a), len(b)) - pairs
+        conf_err, box_err = max(conf_err, ce), max(box_err, be)
+    share = unpaired / max(rows, 1)
+    line(tag, images=len(got), same_rows_images=same,
+         rows=rows, unpaired=unpaired, unpaired_share=f"{share:.4f}",
+         max_conf_err=f"{conf_err:.3e}", max_box_err_px=f"{box_err:.3e}",
+         tol=f"unpaired {FILE_UNPAIRED_TOL:g}, conf {FILE_CONF_TOL:g}, "
+             f"box {FILE_BOX_TOL_PX:g} px")
+    if not (rows > 0 and share <= FILE_UNPAIRED_TOL
+            and conf_err <= FILE_CONF_TOL and box_err <= FILE_BOX_TOL_PX):
+        fail(f"{tag}: {what} on the card disagree with the CPU's")
+
+
 def files_vs_cpu(tag, net, img_dir, shapes, tmp, n_img=4, **kw):
     """run_detection over the first n_img images on the card and on the CPU
     (a copy of the net): files written for the same images, with the same
-    rows up to the card's rounding (see FILE_* above). Prints how many
-    images have the very same rows in the same order, the rows paired, and
-    the paired rows' largest conf and box errors."""
+    rows up to the card's rounding (rows_vs_cpu)."""
     names = sorted(os.listdir(img_dir))[:n_img]
     sub = os.path.join(tmp, f"{tag}_images")
     os.makedirs(sub)
@@ -641,28 +674,10 @@ def files_vs_cpu(tag, net, img_dir, shapes, tmp, n_img=4, **kw):
     out_g, out_c = (os.path.join(tmp, f"{tag}_{d}") for d in ("card", "cpu"))
     run_detection_on(net, sub, out_g, "cuda", **kw)
     run_detection_on(copy.deepcopy(net).cpu(), sub, out_c, "cpu", **kw)
-    same = rows = unpaired = 0
-    conf_err = box_err = 0.0
-    for i, n in enumerate(names):
-        a = np.load(os.path.join(out_g, n))
-        b = np.load(os.path.join(out_c, n))
-        if a.shape == b.shape and np.array_equal(a[:, 0], b[:, 0]) and \
-                np.abs(a[:, 5] - b[:, 5]).max(initial=0) <= FILE_CONF_TOL:
-            same += 1
-        pairs, ce, be = pair_rows(a, b, shapes[i])
-        rows += max(len(a), len(b))
-        unpaired += max(len(a), len(b)) - pairs
-        conf_err, box_err = max(conf_err, ce), max(box_err, be)
-    share = unpaired / max(rows, 1)
-    line(f"{tag}_files_vs_cpu", images=n_img, same_rows_images=same,
-         rows=rows, unpaired=unpaired, unpaired_share=f"{share:.4f}",
-         max_conf_err=f"{conf_err:.3e}", max_box_err_px=f"{box_err:.3e}",
-         tol=f"unpaired {FILE_UNPAIRED_TOL:g}, conf {FILE_CONF_TOL:g}, "
-             f"box {FILE_BOX_TOL_PX:g} px")
-    if not (rows > 0 and share <= FILE_UNPAIRED_TOL
-            and conf_err <= FILE_CONF_TOL and box_err <= FILE_BOX_TOL_PX):
-        fail(f"{tag}: run_detection's files on the card disagree with the "
-             f"CPU's")
+    rows_vs_cpu(f"{tag}_files_vs_cpu",
+                *([np.load(os.path.join(d, n)) for n in names]
+                  for d in (out_g, out_c)),
+                shapes[:n_img], "run_detection's files")
 
 
 def run_detection_on(net, img_dir, out_dir, device, **kw):
@@ -672,6 +687,7 @@ def run_detection_on(net, img_dir, out_dir, device, **kw):
 
 
 def main(kernels_only=False):
+    global SMI
     import torch
 
     start = time.perf_counter()
@@ -691,6 +707,7 @@ def main(kernels_only=False):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+    SMI = smi
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
 
@@ -754,6 +771,7 @@ def main(kernels_only=False):
         shapes = make_images(img_dir, seed=0)
         records = [serving_phases(dev, tmp, img_dir, shapes),
                    ssd_phases(dev, tmp, img_dir, shapes)]
+        int8_launches = int8_phases(dev, tmp, img_dir, shapes)
         resize_phase(dev, tmp, img_dir)
         retina_phases(dev, tmp, img_dir, shapes)
         records += frcnn_phases(dev, tmp, img_dir, shapes, gather_record)
@@ -764,6 +782,7 @@ def main(kernels_only=False):
         frozen_launches, step_fields = frozen_train_phases(dev, tmp, img_dir,
                                                            shapes)
         for rec in records:
+            rec["int8_launches"] = int8_launches.get(rec["name"], 0)
             rec["train_eval_launches"] = train_launches.get(rec["name"], 0) \
                 + frozen_launches.get(rec["name"], 0)
             rec.update(step_fields.get(rec["name"], {}))
@@ -1327,6 +1346,431 @@ def ssd_phases(dev, tmp, img_dir, shapes):
         "bound_by": by,
         "library_ms": None,
     }
+
+
+# ---- int8 serving (models/quant.py, models/quant_ssd.py) -------------------
+
+Q8_CALIB = 16  # run_detection calibrates on min(batch, images, 16) images
+Q8_CPU_IMAGES = 4  # the int8 walk on the card against the CPU
+Q8_CLI_IMAGES = 8
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core operations/s, data sheet
+# The int8 walk on the card against the CPU from one quantized tree. Every
+# conv of the walk, given the card's own int8 input, is computed again on
+# the CPU: its f32 output (the exact int32 sum, times dq, plus b) must be
+# bit-equal (convs_vs_cpu). Then the walk and its detections, through the
+# detect entry point (q8_vs_cpu): the CPU walk computes each int8 map from
+# the card's maps before it and is then handed the card's map, so each map
+# is held on its own input. A sigmoid (SiLU), a hardswish or a
+# squeeze-excite mean an ulp apart on a requantization boundary moves a
+# value by one step, so each map may differ by one step in at most
+# Q8_FLIP_TOL of its values; the detections from the card's last maps are
+# held as run_detection's files are (FILE_*). Two walks left to run on
+# their own are not compared: each such step moves the sums of every value
+# it feeds, some of which cross their own boundaries, and the steps
+# multiply down the walk.
+Q8_FLIP_TOL = 1e-3
+# int8 against f32 on the card, YOLOv5: the JAX package's drift bound
+# (tests/test_quant.py: mean score drift in sigmoid space). SSDLite's drift
+# is printed, not held: the JAX package bounds it on its own init at 64 px
+# (tests/test_quant_ssd.py), and the seeded full-width net's box deltas are
+# small beside the activation ranges that set its per-tensor scales.
+Q8_SCORE_DRIFT = 0.10
+
+
+def int_mm_shapes(run):
+    """The (M, K, N) of every int8 contraction ``run()`` makes."""
+    from edgeml_tpu_torch.models import quant
+
+    shapes = []
+    orig = quant.int_matmul
+
+    def record(a, wmat):
+        shapes.append((a.shape[0], a.shape[1], wmat.shape[0]))
+        return orig(a, wmat)
+
+    quant.int_matmul = record
+    try:
+        run()
+    finally:
+        quant.int_matmul = orig
+    return shapes
+
+
+def contraction_ms(dev, shapes):
+    """The contractions of one trunk (``int_mm_shapes``) replayed through
+    ``torch._int_mm`` on random int8 operands of their shapes: (ms summed,
+    bound ms, "operations"|"bytes"). Each call's bound is the larger of
+    2 M K N operations at the int8 peak and its bytes (the im2col and the
+    weights read once, the int32 output written once) over HBM."""
+    import collections
+
+    import torch
+
+    total = t_ops = t_bytes = bound = 0.0
+    for (m, k, n), count in collections.Counter(shapes).items():
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev)
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev)
+        total += count * cuda_ms(lambda: torch._int_mm(a, w.t()), 3,
+                                 warmup=1)
+        ops = 2 * m * k * n / H100_INT8_OPS
+        nbytes = (m * k + n * k + 4 * m * n) / H100_BYTES
+        t_ops += count * ops
+        t_bytes += count * nbytes
+        bound += count * max(ops, nbytes)
+        del a, w
+    return total, bound * 1e3, ("operations" if t_ops >= t_bytes
+                                else "bytes")
+
+
+def outputs_corr(tag, got, ref, **kw):
+    """Prints each output's correlation with its reference and largest
+    error (a reading, not held: see Q8_SCORE_DRIFT)."""
+    corrs, errs = [], []
+    for a, b in zip(got, ref):
+        a = a.float().cpu().numpy().ravel()
+        b = b.float().cpu().numpy().ravel()
+        corrs.append(float(np.corrcoef(a, b)[0, 1]))
+        errs.append(float(np.abs(a - b).max()))
+    line(tag, corr=repr([round(c, 6) for c in corrs]),
+         max_abs_err=repr([float(f"{e:.4g}") for e in errs]), **kw)
+
+
+class CheckedQConv:
+    """A QConv on the card that computes each call again on the CPU from the
+    card's own input and counts the f32 outputs that differ."""
+
+    def __init__(self, qc, stats):
+        self.qc, self.cpu, self.stats = qc, qc.to("cpu"), stats
+        self.w = qc.w
+
+    def __call__(self, xq, stride, pad, groups=1):
+        y = self.qc(xq, stride, pad, groups)
+        ref = self.cpu(xq.cpu(), stride, pad, groups)
+        self.stats["convs"] += 1
+        self.stats["values"] += ref.numel()
+        self.stats["differ"] += int((y.cpu() != ref).sum())
+        return y
+
+
+def convs_vs_cpu(tag, tree, run):
+    """``run(tree)`` with every QConv of the tree checked (CheckedQConv):
+    every conv's f32 output on the card bit-equal to the CPU's from the same
+    input."""
+    stats = {"convs": 0, "values": 0, "differ": 0}
+    checked = dict(tree, qparams={k: CheckedQConv(v, stats)
+                                  for k, v in tree["qparams"].items()})
+    if "detect" in tree:
+        checked["detect"] = [CheckedQConv(v, stats) for v in tree["detect"]]
+    run(checked)
+    line(tag, **stats, tol="bit-equal")
+    if stats["differ"] or not stats["convs"]:
+        fail(f"{tag}: int8 convs on the card differ from the CPU's on the "
+             f"same input ({stats})")
+
+
+@contextlib.contextmanager
+def emits_from(ctx_cls, card, diffs=None):
+    """While open, the int8 maps that ``ctx_cls._emit`` makes (``Q8Yolo``,
+    or ``quant_ssd._Q8Ctx``, whose emits are (map, name) pairs) go to
+    ``card`` ({name: CPU copy}). With ``diffs`` (a list), each map is
+    instead compared with the card's map of its name ((name, values that
+    differ, values, largest step) appended) and the card's map is handed
+    on, so the next layer starts from the card's input."""
+    import torch
+
+    orig = ctx_cls._emit
+
+    def emit(self, name, y):
+        out = orig(self, name, y)
+        q = out[0] if isinstance(out, tuple) else out
+        if diffs is None:
+            card[name] = q.cpu()
+            return out
+        ref = card[name]
+        d = (q.to(torch.int32) - ref.to(torch.int32)).abs()
+        diffs.append((name, int((d > 0).sum()), d.numel(), int(d.max())))
+        return (ref, out[1]) if isinstance(out, tuple) else ref
+
+    ctx_cls._emit = emit
+    try:
+        yield
+    finally:
+        ctx_cls._emit = orig
+
+
+def q8_vs_cpu(tag, dev, ctx_cls, detect, net, tree, hws):
+    """``detect(net, tree, device)`` (the detect entry point's (dets,
+    valid) over the first images) on the card (dev), then on the CPU with copies
+    of the net and the tree, its walk handed the card's int8 maps
+    (emits_from): each map within one step in at most Q8_FLIP_TOL of its
+    values, and the detections' rows held as run_detection's files are
+    (rows_vs_cpu)."""
+    from edgeml_tpu_torch.models.quant import tree_to
+
+    card, diffs = {}, []
+    with emits_from(ctx_cls, card):
+        got = detect(net, tree, dev)
+    with emits_from(ctx_cls, card, diffs):
+        ref = detect(copy.deepcopy(net).cpu(), tree_to(tree, "cpu"), "cpu")
+    if not card or len(diffs) != len(card):
+        fail(f"{tag}: the card's walk emitted {len(card)} maps, the CPU's "
+             f"{len(diffs)}")
+    worst = max(diffs, key=lambda d: (d[3], d[1] / d[2]))
+    line(f"{tag}_walk_vs_cpu", maps=len(diffs),
+         values=sum(d[2] for d in diffs), differ=sum(d[1] for d in diffs),
+         worst_map=repr(worst),
+         tol=f"each map: one step in {Q8_FLIP_TOL:g} of its values")
+    if worst[3] > 1 or any(d[1] > Q8_FLIP_TOL * d[2] for d in diffs):
+        fail(f"{tag}: an int8 map on the card departs from the CPU's on the "
+             f"same input by more than rounding steps ({worst})")
+    rows_vs_cpu(f"{tag}_dets_vs_cpu",
+                *([d[v].cpu().numpy() for d, v in zip(*run)]
+                  for run in (got, ref)),
+                hws, "int8 detections")
+
+
+def q8_serve_runs(tag, net, img_dir, shapes, tmp, labels, want, **kw):
+    """run_detection over the N_IMAGES images at each int8 dtype of
+    ``labels``: each run's kernel launches (counts set to 0 just before,
+    read just after; ``want(n_batches)`` gives the exact counts), files,
+    wall and peak memory. Returns {label: launch counts}."""
+    import torch
+
+    n_batches = math.ceil(N_IMAGES / BATCH)
+    runs = {}
+    for label in labels:
+        out_dir = os.path.join(tmp, f"{tag}_{label}")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        run_detection_on(net, img_dir, out_dir, "cuda", batch_size=BATCH,
+                         dtype=label, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        if got != want(n_batches):
+            fail(f"{tag} {label}: kernels launched {got} times for "
+                 f"{n_batches} batches (want {want(n_batches)})")
+        score = torch.bfloat16 if label == "int8-bf16" else torch.float32
+        conf_t = float(torch.tensor(kw["conf_thres"], dtype=score))
+        n_rows = check_files(out_dir, shapes, 80, conf_t)
+        runs[label] = got
+        line(f"{tag}_serve_{label.replace('-', '_')}", images=N_IMAGES,
+             batch=BATCH, files=N_IMAGES, rows=n_rows,
+             launches=repr(dict(zip(("nms_fused", "nms_blocked", "nms_seq",
+                                     "gather_rows"), got))),
+             e2e_img_s=f"{N_IMAGES / wall:.1f}",
+             peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+             card=repr(SMI))
+    return runs
+
+
+def q8_device_times(tag, dev, fns, trunks, shapes_of):
+    """One device-resident batch: each serving dtype's detect call and
+    trunk timed (CUDA events; int8-bf16 shares the int8 trunk), the int8
+    contraction's share of the int8 trunk against its bound, and the
+    _int_mm calls a batch."""
+    times = {}
+    for label, fn in fns.items():
+        dev_ms = cuda_ms(fn, 5)
+        trunk_ms = cuda_ms(trunks[label.replace("int8_bf16", "int8")], 5)
+        times[label] = dev_ms
+        line(f"{tag}_device_{label}", batch=BATCH,
+             device_batch_ms=f"{dev_ms:.3f}",
+             device_img_s=f"{BATCH / dev_ms * 1e3:.1f}",
+             trunk_ms=f"{trunk_ms:.3f}", card=repr(SMI))
+    shapes = int_mm_shapes(shapes_of)
+    c_ms, bound, by = contraction_ms(dev, shapes)
+    q8_trunk = cuda_ms(trunks["int8"], 5)
+    line(f"{tag}_contraction", int_mm_calls=len(shapes),
+         contraction_ms=f"{c_ms:.3f}", bound_ms=f"{bound:.4f}", bound_by=by,
+         int8_trunk_ms=f"{q8_trunk:.3f}",
+         share_of_trunk=f"{c_ms / q8_trunk:.3f}",
+         over_bound=f"{c_ms / bound:.1f}", card=repr(SMI))
+    if not shapes:
+        fail(f"{tag}: the int8 trunk made no _int_mm call")
+    return times
+
+
+def q8_yolo_phase(dev, tmp, img_dir, shapes, variant, seed, x, meta_t, hw_t):
+    """[q8_yolov5{variant}]: calibrate on the first Q8_CALIB images, the
+    int8 and int8-bf16 runs, the four serving dtypes on one batch, the
+    contraction, and the int8 walk on the card against the CPU from the
+    same tree. Returns the runs' launch counts."""
+    import torch
+
+    from edgeml_tpu_torch.data.loader import decode_image
+    from edgeml_tpu_torch.models.common import letterbox_batch
+    from edgeml_tpu_torch.models.infer import detect_batch
+    from edgeml_tpu_torch.models.quant import (
+        Q8Yolo, prepare_int8, q8_predict,
+    )
+
+    tag = f"q8_yolov5{variant}"
+    conf, iou = 0.001, 0.6
+    net = seeded_yolov5(variant, seed, x[:16], dev)
+    names = sorted(os.listdir(img_dir))[:Q8_CALIB]
+    calib = torch.from_numpy(letterbox_batch(
+        [decode_image(os.path.join(img_dir, n)) for n in names], 640)[0]
+    ).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = prepare_int8(net, lambda i: calib, iters=1).tree
+    torch.cuda.synchronize()
+    line(f"{tag}_calibrate", images=Q8_CALIB, scales=len(tree["scales"]),
+         convs=len(tree["qparams"]) + len(tree["detect"]),
+         ms=f"{(time.perf_counter() - t0) * 1e3:.1f}")
+    runs = q8_serve_runs(tag, net, img_dir, shapes, tmp,
+                         ("int8", "int8-bf16"), lambda n: (n, 0, 0, 3 * n),
+                         conf_thres=conf, iou_thres=iou)
+    bf16 = torch.bfloat16
+    bundle = Q8Yolo(net, **tree)
+    xf = x.permute(0, 3, 1, 2)
+    with torch.no_grad():
+        times = q8_device_times(
+            tag, dev,
+            {label: (lambda d=d, q=q: detect_batch(
+                net, x, meta_t, hw_t, conf, iou, dtype=d, q8=q))
+             for label, d, q in (("f32", None, None), ("bf16", bf16, None),
+                                 ("int8", None, tree),
+                                 ("int8_bf16", bf16, tree))},
+            {"f32": lambda: net.trunk(xf),
+             "bf16": lambda: net.trunk(xf.to(bf16)),
+             "int8": lambda: bundle.trunk(x)},
+            lambda: bundle.trunk(x))
+    dets, valid = detect_batch(net, x, meta_t, hw_t, conf, iou, q8=tree)
+    if not (torch.isfinite(dets).all() and int(valid.sum()) > 0):
+        fail(f"{tag}: no finite int8 detections")
+    line(f"{tag}_vs_f32", int8_over_f32=f"{times['int8'] / times['f32']:.2f}",
+         int8_over_bf16=f"{times['int8'] / times['bf16']:.2f}",
+         int8_bf16_over_bf16=f"{times['int8_bf16'] / times['bf16']:.2f}")
+    n = Q8_CPU_IMAGES
+    xs = x[:n]
+    convs_vs_cpu(f"{tag}_convs_vs_cpu", tree,
+                 lambda t: q8_predict(net, t, xs))
+    q8_vs_cpu(tag, dev, Q8Yolo, lambda nt, t, d: detect_batch(
+        nt, xs.to(d), meta_t[:n].to(d), hw_t[:n].to(d), conf, iou, q8=t),
+        net, tree, shapes[:n])
+    q_card = q8_predict(net, tree, xs)
+    obj, xywh, cls = net.predict(xs)
+    drift = (float((q_card[0] - obj).abs().mean()),
+             float((q_card[2] - cls).abs().mean()))
+    line(f"{tag}_drift_vs_f32", obj_mean=f"{drift[0]:.4f}",
+         cls_mean=f"{drift[1]:.4f}",
+         xy_mean_px=f"{float((q_card[1] - xywh)[..., :2].abs().mean()):.3f}",
+         tol=Q8_SCORE_DRIFT)
+    if max(drift) >= Q8_SCORE_DRIFT:
+        fail(f"{tag}: int8 scores drift {drift} from f32")
+    return runs
+
+
+def q8_ssd_phase(dev, tmp, img_dir, shapes):
+    """[q8_ssd]: SSDLite320 int8, as q8_yolo_phase (its int8 logits are f32:
+    no int8-bf16 run), through the blocked suppressor."""
+    import torch
+
+    from edgeml_tpu_torch.data.coco_labelmap import coco_to_yolov5
+    from edgeml_tpu_torch.data.loader import decode_image
+    from edgeml_tpu_torch.models.infer import _detect_generic, square_batch
+    from edgeml_tpu_torch.models.quant_ssd import (
+        Q8SSD, _Q8Ctx, prepare_int8_ssd,
+    )
+
+    tag = "q8_ssd"
+    conf, iou = 0.001, 0.6
+    names = sorted(os.listdir(img_dir))
+    x = torch.from_numpy(square_batch(
+        [decode_image(os.path.join(img_dir, n)) for n in names[:BATCH]],
+        320)).to(dev)
+    net = seeded_ssdlite(3, x[:16], dev)
+    calib = x[:Q8_CALIB].contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = prepare_int8_ssd(net, lambda i: calib, iters=1).tree
+    torch.cuda.synchronize()
+    line(f"{tag}_calibrate", images=Q8_CALIB, scales=len(tree["scales"]),
+         convs=len(tree["qparams"]),
+         ms=f"{(time.perf_counter() - t0) * 1e3:.1f}")
+    runs = q8_serve_runs(tag, net, img_dir, shapes, tmp, ("int8",),
+                         lambda n: (0, n, 0, 3 * n), conf_thres=conf,
+                         iou_thres=iou, class_map=coco_to_yolov5)
+    bf16 = torch.bfloat16
+    bundle = Q8SSD(net, **tree)
+    with torch.no_grad():
+        q8_device_times(
+            tag, dev,
+            {label: (lambda d=d, q=q: _detect_generic(
+                net, x, conf, iou, dtype=d, q8=q))
+             for label, d, q in (("f32", None, None), ("bf16", bf16, None),
+                                 ("int8", None, tree))},
+            {"f32": lambda: net(x), "bf16": lambda: net(x.to(bf16)),
+             "int8": lambda: bundle.apply(x)},
+            lambda: bundle.apply(x))
+    n = Q8_CPU_IMAGES
+    xs = x[:n]
+    convs_vs_cpu(f"{tag}_convs_vs_cpu", tree,
+                 lambda t: Q8SSD(net, **t).apply(xs))
+    q8_vs_cpu(tag, dev, _Q8Ctx, lambda nt, t, d: _detect_generic(
+        nt, xs.to(d), conf, iou, q8=t), net, tree, shapes[:n])
+    with torch.no_grad():
+        outputs_corr(f"{tag}_drift_vs_f32", bundle.apply(xs), net(xs),
+                     outputs="cls,reg", images=n)
+    return runs
+
+
+def q8_cli_phase(tmp, img_dir, shapes):
+    """[q8_cli]: the detect CLI with --int8 and --int8 --bf16 (YOLOv5n, its
+    random init, on the card by default) over the first Q8_CLI_IMAGES
+    images."""
+    sub = os.path.join(tmp, "q8_cli_images")
+    os.makedirs(sub)
+    for n in sorted(os.listdir(img_dir))[:Q8_CLI_IMAGES]:
+        shutil.copy(os.path.join(img_dir, n), sub)
+    for flags in (["--int8"], ["--int8", "--bf16"]):
+        out = os.path.join(tmp, "q8_cli_" + "_".join(f[2:] for f in flags))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "edgeml_tpu_torch.cli.detect", sub, out,
+             "--model", "yolov5n", "--conf-thres", "1e-6", *flags],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            fail(f"detect CLI {' '.join(flags)}: {res.stderr[-2000:]}")
+        n_rows = check_files(out, shapes[:Q8_CLI_IMAGES], 80, 0.0)
+        line("q8_cli", flags=repr(" ".join(flags)), images=Q8_CLI_IMAGES,
+             rows=n_rows, wall_s=f"{time.perf_counter() - t0:.1f}")
+
+
+def int8_phases(dev, tmp, img_dir, shapes):
+    """The int8 serving paths: YOLOv5n and YOLOv5m, SSDLite320, the CLI.
+    Returns {kernel record name: launches on the int8 runs}."""
+    import torch
+
+    from edgeml_tpu_torch.data.loader import decode_image
+    from edgeml_tpu_torch.models.common import letterbox_batch
+
+    t0 = time.perf_counter()
+    names = sorted(os.listdir(img_dir))
+    first = [decode_image(os.path.join(img_dir, n)) for n in names[:BATCH]]
+    lb, meta = letterbox_batch(first, 640)
+    hw = np.array([im.shape[:2] for im in first], np.float32)
+    x = torch.from_numpy(lb).to(dev)
+    meta_t = torch.from_numpy(meta).to(dev)
+    hw_t = torch.from_numpy(hw).to(dev)
+    runs = {}
+    for variant, seed in (("n", 1), ("m", 2)):
+        for label, got in q8_yolo_phase(dev, tmp, img_dir, shapes, variant,
+                                        seed, x, meta_t, hw_t).items():
+            runs[f"yolov5{variant}_{label}"] = got
+        torch.cuda.empty_cache()
+    del x, meta_t, hw_t
+    runs["ssd_int8"] = q8_ssd_phase(dev, tmp, img_dir, shapes)["int8"]
+    torch.cuda.empty_cache()
+    q8_cli_phase(tmp, img_dir, shapes)
+    total = [sum(c[i] for c in runs.values()) for i in range(4)]
+    line("int8_wall", s=f"{time.perf_counter() - t0:.1f}")
+    return {"nms_fused_greedy_keep": total[0],
+            "nms_blocked_greedy_keep": total[1],
+            "nms_seq_suppress": total[2], "gather_rows": total[3]}
 
 
 def retina_phases(dev, tmp, img_dir, shapes):

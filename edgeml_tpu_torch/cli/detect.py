@@ -13,8 +13,10 @@ remapped to the compact YOLO ids; their weights load from torchvision
 state_dicts by key. ``--model-path`` also takes a native training
 checkpoint (the pickle that either package's train CLI writes, its model
 in the reference package's tree layout), preferring its EMA shadow when it
-has one. ``--int8``, ``--data-parallel`` and directory (orbax) checkpoints
-are not yet ported and exit with a message.
+has one. ``--int8`` serves the int8 post-training-quantized trunk of a
+YOLOv5 or ``ssd`` model, calibrated on the first images of IMG_DIR; for
+YOLOv5 ``--int8 --bf16`` adds the bf16 score tail. ``--data-parallel`` and
+directory (orbax) checkpoints are not yet ported and exit with a message.
 """
 
 from __future__ import annotations
@@ -136,11 +138,14 @@ def main(opts):
         num_class = 91 if opts.dataset == "coco" else 21
         class_map = (coco_to_yolov5 if opts.dataset == "coco"
                      else {i: i - 1 for i in range(1, 21 + 1)})
-    if opts.int8:
-        raise SystemExit("--int8 serving is not yet ported")
     if opts.data_parallel:
         raise SystemExit("--data-parallel is not yet ported")
     net = load_detector(opts.model, opts.model_path, num_class)
+
+    dtype = torch.bfloat16 if opts.bf16 else None
+    if opts.int8:
+        # --int8 --bf16 composes: the int8 trunk with the bf16 score tail
+        dtype = "int8-bf16" if dtype is not None else "int8"
 
     from ..models.infer import run_detection
 
@@ -153,7 +158,7 @@ def main(opts):
         iou_thres=opts.iou_thres,
         fmt=opts.format,
         class_map=class_map,
-        dtype=torch.bfloat16 if opts.bf16 else None,
+        dtype=dtype,
         device=opts.device,
     )
 
@@ -180,7 +185,12 @@ def getargs(argv=None):
                       help="Not yet ported.")
     args.add_argument('--bf16', action="store_true",
                       help="bfloat16 serving (trunk + scores; boxes stay f32).")
-    args.add_argument('--int8', action="store_true", help="Not yet ported.")
+    args.add_argument('--int8', action="store_true",
+                      help="int8 post-training-quantized serving trunk "
+                           "(YOLO and ssd; calibrated on the first batch of "
+                           "img_dir). Accuracy knob: see models/quant.py "
+                           "and models/quant_ssd.py. For YOLO composes "
+                           "with --bf16 (int8 trunk + bf16 score tail).")
     args.add_argument('--device', type=str, default="cuda",
                       help="'cuda' (default) or 'cpu'.")
     return args.parse_args(argv)

@@ -4,10 +4,11 @@ Conv + eval BatchNorm + SiLU (YOLOv5), Conv + eval BatchNorm + a chosen
 activation named as torchvision's ``Conv2dNormActivation`` (SSDLite, the
 Faster R-CNN FPN and box head), the frozen BatchNorm affine and GroupNorm
 (ResNet-FPN, RetinaNet), convolutions and linear layers that run in their
-input's dtype, the 5x5 stride-1 max pool, nearest 2x
-upsample and the host-side letterbox. BatchNorm in eval mode is computed as
-``(x - mean) * rsqrt(var + eps) * scale + bias`` in the activation dtype,
-the reference's formula; a bf16 serving pass runs it in bf16 end to end.
+input's dtype, the 5x5 stride-1 max pool and nearest 2x upsample (both also
+on int8 maps) and the host-side letterbox. BatchNorm in eval mode is
+computed as ``(x - mean) * rsqrt(var + eps) * scale + bias`` in the
+activation dtype, the reference's formula; a bf16 serving pass runs it in
+bf16 end to end.
 Every layer here casts its f32 weights to the input's dtype once
 (``CastCache``), so a module serves f32 and bf16 inputs without a copy of
 itself.
@@ -360,13 +361,23 @@ class FrozenBatchNorm2d(nn.Module):
 
 
 def max_pool_same(x, k: int = 5):
-    """k x k max pool, stride 1, SAME padding (implicit -inf padding)."""
-    return F.max_pool2d(x, k, 1, k // 2)
+    """k x k max pool, stride 1, SAME padding (implicit -inf padding). An
+    integer map (the int8 walk: max commutes with the monotone quantizer)
+    is pooled in f32, where its values are exact: ``max_pool2d`` has no
+    int8 kernel on the card."""
+    if x.is_floating_point():
+        return F.max_pool2d(x, k, 1, k // 2)
+    return F.max_pool2d(x.float(), k, 1, k // 2).to(x.dtype)
 
 
 def upsample2x(x):
-    """Nearest-neighbour x2 upsample (NCHW)."""
-    return F.interpolate(x, scale_factor=2, mode="nearest")
+    """Nearest-neighbour x2 upsample (NCHW). An integer map (the int8 walk)
+    is copied in f32, where its values are exact: ``interpolate`` has no
+    integer kernel on the CPU."""
+    if x.is_floating_point():
+        return F.interpolate(x, scale_factor=2, mode="nearest")
+    return F.interpolate(x.float(), scale_factor=2,
+                         mode="nearest").to(x.dtype)
 
 
 PAD_VALUE = 114 / 255  # the YOLOv5 letterbox's gray fill

@@ -8,7 +8,10 @@ square-resized to the model's input size and normalised with torchvision's
 mean/std, so their normalised coordinates need no unmap. Output rows are
 (cls, x, y, w, h, conf), xywh-center normalised to the original image
 size, one ``.npy`` or ``.txt`` file per image named after the image stem; a
-``class_map`` renames classes and drops the rows of unmapped ones.
+``class_map`` renames classes and drops the rows of unmapped ones. YOLOv5
+and SSDLite also serve int8 post-training-quantized trunks
+(``models/quant.py``, ``models/quant_ssd.py``), calibrated on the first
+images of the directory itself.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and none asked for they raise.
@@ -23,11 +26,14 @@ import numpy as np
 import torch
 
 from ..data.io import V5_STAGE_NAMES
-from ..data.loader import iter_batches, list_images, resize_bilinear
+from ..data.loader import decode_image, iter_batches, list_images, \
+    resize_bilinear
 from ..device import exact_f32_cuda, resolve_device
 from ..ops.nms import nms_split_batch
 from .common import letterbox_batch
 from .faster_rcnn import FasterRCNN
+from .quant import prepare_int8, q8_predict
+from .quant_ssd import prepare_int8_ssd, q8_ssd_apply
 from .retinanet import RetinaNet, retina_postprocess
 from .ssd_loss import ssd_postprocess
 from .ssdlite import SSDLite
@@ -77,23 +83,29 @@ def _nms_unmap(pred, meta, orig_hw, conf_thres, iou_thres,
 @torch.no_grad()
 def detect_batch(net: YoloV5, images, meta, orig_hw, conf_thres: float,
                  iou_thres: float, max_det: int = 300,
-                 multi_label: bool = True, dtype=None):
+                 multi_label: bool = True, dtype=None, q8=None):
     """Forward + decode + NMS + unmap for one letterboxed batch on the
     images' device.
 
     images: (B, S, S, 3) uint8 pixels or float in [0, 1]; dtype: None (f32)
-    or torch.bfloat16 for the trunk and score path.
+    or torch.bfloat16 for the trunk and score path; q8: a quantized tree
+    (``quant.Q8Yolo.tree``) serves the int8 trunk instead, and ``dtype`` is
+    then the dtype of its dequantized obj/cls logits (bf16 keys the bf16
+    NMS tail; boxes stay f32).
     Returns (dets (B, max_det, 6) rows [cls, x, y, w, h, conf], valid)."""
     if images.dtype == torch.uint8:
         images = images.to(torch.float32) / 255.0
-    pred = net.predict(images, dtype=dtype)
+    if q8 is not None:
+        pred = q8_predict(net, q8, images, score_dtype=dtype)
+    else:
+        pred = net.predict(images, dtype=dtype)
     return _nms_unmap(pred, meta, orig_hw, conf_thres, iou_thres,
                       max_det, multi_label)
 
 
 @torch.no_grad()
 def _detect_generic(net, images, conf_thres: float, iou_thres: float,
-                    dtype=None):
+                    dtype=None, q8=None):
     """SSDLite / RetinaNet / Faster R-CNN: forward + the family's
     postprocess on a batch of square-resized, normalised images
     (B, S, S, 3) f32 on their device.
@@ -101,14 +113,21 @@ def _detect_generic(net, images, conf_thres: float, iou_thres: float,
     dtype: None (f32) or torch.bfloat16 for the trunk and heads. SSDLite's
     head outputs go back to f32 before the postprocess; RetinaNet's
     postprocess casts only the 2048 rows it gathers; Faster R-CNN keeps
-    every decision in f32 (``FasterRCNN.detect``).
+    every decision in f32 (``FasterRCNN.detect``). q8 (SSDLite only): a
+    quantized tree (``quant_ssd.Q8SSD.tree``) serves the int8 trunk, whose
+    f32 logits take the same postprocess.
     Returns (dets (B, max_det, 6) rows [cls, x, y, w, h, conf] normalised by
     the input size, valid (B, max_det)). A plain square resize makes
     normalised coordinates scale-invariant: x / S in model space equals
     x_orig / w in the image."""
+    if q8 is not None and not isinstance(net, SSDLite):
+        raise ValueError("int8 (q8) serving: YOLO and SSDLite only")
     x = images if dtype is None else images.to(dtype)
     if isinstance(net, SSDLite):
-        cls_logits, reg = net(x)
+        if q8 is not None:
+            cls_logits, reg = q8_ssd_apply(net, q8, images)
+        else:
+            cls_logits, reg = net(x)
         dets, valid = ssd_postprocess(
             net, cls_logits.to(torch.float32), reg.to(torch.float32),
             net.anchors(images.device), score_thresh=conf_thres,
@@ -171,11 +190,22 @@ def run_detection(
         their own ``image_size``.
     :param class_map: optional {model class id: output class id}; rows of a
         class that maps to -1 or is absent are dropped.
-    :param dtype: None (f32, TF32 off) or torch.bfloat16 serving.
+    :param dtype: None (f32, TF32 off), torch.bfloat16, or (YOLOv5 and
+        SSDLite) "int8": the post-training-quantized trunk, calibrated on
+        the first min(batch_size, 16) images of ``img_dir`` (letterboxed for
+        YOLOv5; square-resized and normalised for SSDLite), its scores f32;
+        "int8-bf16" casts YOLOv5's dequantized obj/cls logits to bf16 (the
+        bf16 NMS tail); SSDLite's int8 logits stay f32 either way.
     :param device: "cuda" (the default when None) or "cpu".
     """
-    dev = resolve_device(device)
     is_yolo = isinstance(net, YoloV5)
+    int8 = isinstance(dtype, str)
+    if int8 and dtype not in ("int8", "int8-bf16"):
+        raise ValueError(f"run_detection: unknown dtype {dtype!r}")
+    if int8 and not (is_yolo or isinstance(net, SSDLite)):
+        raise ValueError(
+            "int8 serving is implemented for YOLO and SSDLite only")
+    dev = resolve_device(device)
     if not (is_yolo or isinstance(net, (SSDLite, RetinaNet, FasterRCNN))):
         raise TypeError(f"run_detection: {type(net).__name__} is not yet "
                         f"ported (YOLOv5, SSDLite, RetinaNet and Faster "
@@ -185,6 +215,20 @@ def run_detection(
     net.to(dev).eval()
     names = list_images(img_dir)
     Path(save_dir).mkdir(parents=True, exist_ok=True)
+    q8 = None
+    if int8 and names:
+        # calibrate on the serving distribution: the first images of img_dir
+        calib = [decode_image(os.path.join(img_dir, n))
+                 for n in names[:min(batch_size, len(names), 16)]]
+        if is_yolo:
+            xc = torch.from_numpy(letterbox_batch(calib, img_size)[0]).to(dev)
+            q8 = prepare_int8(net, lambda i: xc, iters=1).tree
+            dtype = torch.bfloat16 if dtype == "int8-bf16" else None
+        else:
+            xc = torch.from_numpy(square_batch(calib, net.image_size)).to(dev)
+            q8 = prepare_int8_ssd(net, lambda i: xc, iters=1).tree
+            dtype = None
+        del xc
 
     def make_batch(items):
         """Worker thread: letterbox or square-resize; pad the tail batch to
@@ -222,11 +266,11 @@ def run_detection(
             dets, valid = detect_batch(
                 net, torch.from_numpy(arr).to(dev),
                 torch.from_numpy(meta).to(dev), torch.from_numpy(hw).to(dev),
-                conf_thres, iou_thres, dtype=dtype)
+                conf_thres, iou_thres, dtype=dtype, q8=q8)
         else:
             dets, valid = _detect_generic(
                 net, torch.from_numpy(arr).to(dev), conf_thres, iou_thres,
-                dtype=dtype)
+                dtype=dtype, q8=q8)
         save_batch(chunk_names, dets.cpu().numpy(), valid.cpu().numpy())
 
 

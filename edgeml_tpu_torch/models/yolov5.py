@@ -22,6 +22,7 @@ raw per-level heads the loss reads, running stats updated in place).
 
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
@@ -212,14 +213,27 @@ class YoloV5(nn.Module):
 
     # ---- forward -----------------------------------------------------------
 
-    def _walk(self, x):
-        """Backbone + neck walk; returns every stage's output (NCHW) by
-        stage index 0..23."""
+    def walk(self, x, conv_fn, c3_fn, sppf_fn):
+        """The one traversal of the layer graph (backbone + neck): the float
+        trunk, the int8 calibration pass and the int8 serving trunk
+        (``models/quant.py``) all route through it, so their dataflow cannot
+        drift apart (the int8 scales are valid only because calibration and
+        serving walk the same graph).
+
+        ``conv_fn`` / ``c3_fn`` / ``sppf_fn(name, x, kw)`` compute one block
+        (``name`` is ``l{idx}``, ``kw`` the layer table's kwargs); the up and
+        concat routing lives here. Returns (the HEAD_STAGES outputs, {stage
+        index: output} of every stage)."""
         outputs = {}
         y = x
-        for idx, kind, src, _ in self.layers():
-            if kind in ("conv", "c3", "sppf"):
-                y = self.model[idx](y)
+        for idx, kind, src, kw in self.layers():
+            name = f"l{idx}"
+            if kind == "conv":
+                y = conv_fn(name, y, kw)
+            elif kind == "c3":
+                y = c3_fn(name, y, kw)
+            elif kind == "sppf":
+                y = sppf_fn(name, y, kw)
             elif kind == "up":
                 y = upsample2x(y)
             elif kind == "concat":
@@ -227,7 +241,16 @@ class YoloV5(nn.Module):
             else:
                 raise ValueError(f"unknown layer kind {kind!r}")
             outputs[idx] = y
-        return outputs
+        return [outputs[i] for i in HEAD_STAGES], outputs
+
+    def _walk(self, x):
+        """Backbone + neck walk with this module's blocks; returns every
+        stage's output (NCHW) by stage index 0..23."""
+
+        def block(name, y, kw):
+            return self.model[int(name[1:])](y)
+
+        return self.walk(x, block, block, block)[1]
 
     def trunk(self, x):
         """Backbone + neck walk; returns the HEAD_STAGES outputs (NCHW)."""
@@ -269,7 +292,7 @@ class YoloV5(nn.Module):
         det = self.model[24]
         params = det._cast.get(
             [t for conv in det.m for t in (conv.weight, conv.bias)], hdtype)
-        na, no, nc = self.na, self.no, self.num_classes
+        na, no = self.na, self.no
         f32 = torch.float32
         objs, xywhs, clss = [], [], []
         for li, (f, stride, anchors) in enumerate(
@@ -278,22 +301,38 @@ class YoloV5(nn.Module):
             h = F.conv2d(f, w)  # (B, na*no, H, W), bias added per component
             b, _, hh, ww = h.shape
             h = h.reshape(b, na, no, hh, ww).permute(0, 3, 4, 1, 2)
-            h_xy = h[..., 0:2].to(f32) + bias[:, 0:2].to(f32)
-            h_wh = h[..., 2:4].to(f32) + bias[:, 2:4].to(f32)
-            h_obj = h[..., 4] + bias[:, 4]
-            h_cls = h[..., 5:] + bias[:, 5:]
-            gy, gx = torch.meshgrid(
-                torch.arange(hh, dtype=f32, device=h.device),
-                torch.arange(ww, dtype=f32, device=h.device), indexing="ij")
-            grid = torch.stack([gx, gy], dim=-1)  # (H, W, 2) = (x, y)
-            anc = self._anchor_tensor(anchors, h.device)
-            xy = (torch.sigmoid(h_xy) * 2.0 - 0.5 + grid[:, :, None, :]) \
-                * stride
-            wh = (torch.sigmoid(h_wh) * 2.0) ** 2 * anc[None, None, :, :]
-            xywhs.append(torch.cat([xy, wh], -1).reshape(b, -1, 4))
-            objs.append(torch.sigmoid(h_obj).reshape(b, -1))
-            clss.append(torch.sigmoid(h_cls).reshape(b, -1, nc))
+            o, xw, cl = self.decode_level_split(
+                h[..., 0:2].to(f32) + bias[:, 0:2].to(f32),
+                h[..., 2:4].to(f32) + bias[:, 2:4].to(f32),
+                h[..., 4] + bias[:, 4], h[..., 5:] + bias[:, 5:], stride,
+                anchors)
+            objs.append(o)
+            xywhs.append(xw)
+            clss.append(cl)
         return torch.cat(objs, 1), torch.cat(xywhs, 1), torch.cat(clss, 1)
+
+    def decode_level_split(self, h_xy, h_wh, h_obj, h_cls, stride, anchors):
+        """Anchor decode of one level from its split head components, each
+        (B, H, W, na, ...) with the bias added: ``h_xy`` / ``h_wh`` f32,
+        ``h_obj`` / ``h_cls`` in the score dtype. Shared by the f32/bf16
+        ``predict`` and the int8 head (``models/quant.py``), so the box
+        parameterisation cannot drift between them.
+
+        :return: (obj (B, H*W*na), xywh (B, H*W*na, 4) f32,
+            cls (B, H*W*na, nc)).
+        """
+        f32 = torch.float32
+        b, hh, ww = h_obj.shape[:3]
+        gy, gx = torch.meshgrid(
+            torch.arange(hh, dtype=f32, device=h_obj.device),
+            torch.arange(ww, dtype=f32, device=h_obj.device), indexing="ij")
+        grid = torch.stack([gx, gy], dim=-1)  # (H, W, 2) = (x, y)
+        anc = self._anchor_tensor(anchors, h_obj.device)
+        xy = (torch.sigmoid(h_xy) * 2.0 - 0.5 + grid[:, :, None, :]) * stride
+        wh = (torch.sigmoid(h_wh) * 2.0) ** 2 * anc[None, None, :, :]
+        return (torch.sigmoid(h_obj).reshape(b, -1),
+                torch.cat([xy, wh], -1).reshape(b, -1, 4),
+                torch.sigmoid(h_cls).reshape(b, -1, self.num_classes))
 
     def _anchor_tensor(self, anchors, device):
         """One level's (na, 2) f32 anchors on ``device``, cached: a host to
@@ -454,3 +493,24 @@ class YoloV5(nn.Module):
         self.anchors = tuple(tuple(map(tuple, lvl))
                              for lvl in anchors_px.tolist())
         return self
+
+
+@torch.no_grad()
+def fuse_convbn(net: YoloV5) -> YoloV5:
+    """A copy of ``net`` with every BatchNorm's statistics folded into its
+    conv for inference, the reference package's ``fuse_convbn``: the conv
+    weight times ``scale = gain * rsqrt(var + eps)``, the shift ``bias -
+    mean * scale``, then gain 1, mean 0 and variance 1. The norm stays in
+    the walk, so the copy re-applies ``rsqrt(1 + eps)`` as the reference's
+    does; ``models/quant.py`` folds without it."""
+    out = copy.deepcopy(net)
+    for mod in out.modules():
+        if isinstance(mod, ConvBN):
+            bn = mod.bn
+            scale = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+            mod.conv.weight.mul_(scale[:, None, None, None])
+            bn.bias.copy_(bn.bias - bn.running_mean * scale)
+            bn.weight.fill_(1.0)
+            bn.running_mean.zero_()
+            bn.running_var.fill_(1.0)
+    return out

@@ -43,7 +43,8 @@ def test_import_pulls_in_no_jax():
               "coco_matching", "eval_coco", "cli.label", "models.loss",
               "models.train", "models.engine", "parallel.meters",
               "data.fastaug", "data.yolo_aug", "data.transforms",
-              "ops.color", "cli.train", "models.rcnn_loss"):
+              "ops.color", "cli.train", "models.rcnn_loss", "models.quant",
+              "models.quant_ssd"):
         assert "edgeml_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

@@ -68,7 +68,20 @@ what comes out:
     a checkpoint the detect CLI serves and ``evaluate`` runs through the
     kernels (their launches added to ``train_eval_launches``; the
     sequential suppressor's and the gather's records gain their launches a
-    train step and their times at the step's shapes beside their bounds).
+    train step and their times at the step's shapes beside their bounds);
+  * several processes: two ranks on the one card, started with the
+    environment torchrun gives them (gloo: NCCL refuses two ranks a card),
+    each on its device: the detect CLI with ``--data-parallel`` (YOLOv5n,
+    80 classes, 640, global batch 64) over the 256 images in f32 and int8,
+    its files against one process's with each rank's kernel launches and
+    img/s; the train CLI (YOLOv5n, 640, global batch 32, two steps) and
+    one SSDLite320 step at batch 32 against one process's, rank 0's
+    checkpoint served by the detect CLI; the training engine's
+    ``evaluate`` of SSDLite320 on each rank's images (the blocked
+    suppressor and the gather), the evaluator merge bit for bit and the
+    meter sum; then a world-size-1 NCCL group through
+    ``initialize_distributed`` (the launches over both ranks are the
+    kernel record's ``multiprocess_launches``).
 
 Before the serving paths, each kernel is held against its plain version
 bit for bit and timed (``kernel_ms`` looped, ``device_ms`` from a CUDA
@@ -635,7 +648,7 @@ def pair_rows(a, b, hw):
     return pairs, conf_err, box_err
 
 
-def rows_vs_cpu(tag, got, ref, hws, what):
+def rows_vs_cpu(tag, got, ref, hws, what, against="the CPU's"):
     """Detection rows on the card (got) against the CPU's (ref), image by
     image (lists of (n, 6) arrays; images of sizes hws): the same rows up
     to the card's rounding (see FILE_* above). Prints how many images have
@@ -659,7 +672,7 @@ def rows_vs_cpu(tag, got, ref, hws, what):
              f"box {FILE_BOX_TOL_PX:g} px")
     if not (rows > 0 and share <= FILE_UNPAIRED_TOL
             and conf_err <= FILE_CONF_TOL and box_err <= FILE_BOX_TOL_PX):
-        fail(f"{tag}: {what} on the card disagree with the CPU's")
+        fail(f"{tag}: {what} on the card disagree with {against}")
 
 
 def files_vs_cpu(tag, net, img_dir, shapes, tmp, n_img=4, **kw):
@@ -781,8 +794,10 @@ def main(kernels_only=False):
         train_launches = train_phases(dev, tmp, img_dir, shapes)
         frozen_launches, step_fields = frozen_train_phases(dev, tmp, img_dir,
                                                            shapes)
+        mp_launches = multiprocess_phases(dev, tmp, img_dir, shapes)
         for rec in records:
             rec["int8_launches"] = int8_launches.get(rec["name"], 0)
+            rec["multiprocess_launches"] = mp_launches.get(rec["name"], 0)
             rec["train_eval_launches"] = train_launches.get(rec["name"], 0) \
                 + frozen_launches.get(rec["name"], 0)
             rec.update(step_fields.get(rec["name"], {}))
@@ -4713,6 +4728,456 @@ def frozen_train_phases(dev, tmp, img_dir, shapes):
     line("frozen_train_wall", total_s=f"{sum(walls.values()):.1f}",
          **{f"{k}_s": f"{v:.1f}" for k, v in walls.items()})
     return launches, fields
+
+
+# ---- several processes: two ranks on the one card --------------------------
+MP_RANKS = 2  # both on the one card: gloo (NCCL refuses two ranks a device)
+MP_BATCH = 64  # serving: the global batch, 32 a rank
+MP_TRAIN_BATCH = 32  # training: the global batch, 16 a rank
+MP_TRAIN_IMAGES = 64  # the train CLI's two steps
+MP_EVAL_IMAGES = 16  # the SSDLite evaluate merge: 8 a rank
+MP_EVAL_BATCH = 8
+MP_MERGE_IMAGES = 12  # the evaluator merge on fixed detections
+MP_TIMEOUT = 600
+# two ranks against one process on the same card: the train CLI's per-step
+# losses and the SSDLite step's loss within TRAIN_LOSS_TOL, the updates
+# (checkpoint or step, the whole model at once) within the family's
+# TRAIN_UPDATE_TOL and the BatchNorm statistics within TRAIN_STATS_TOL, the
+# card-against-CPU step limits above; the serving files with the FILE_*
+# limits (a rank's batch of 32 may take other cuDNN algorithms than the
+# one process's 64); the evaluator merge bit for bit
+
+
+def mp_free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def mp_spawn(fn, job, world):
+    """Start ``world`` ranks of ``chip_smoke.<fn>(job)`` with the
+    environment torchrun gives them (RANK, WORLD_SIZE, LOCAL_RANK,
+    LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT on localhost); returns the
+    processes, to be collected by ``mp_wait``."""
+    port = str(mp_free_port())
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            f"chip_smoke.{fn}({job!r})")
+    return [subprocess.Popen(
+        [sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                 LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=port))
+        for r in range(world)]
+
+
+def mp_wait(tag, procs):
+    """Each rank's output; every rank is killed if it outlives MP_TIMEOUT,
+    and a rank that fails fails the run."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"{tag}: a rank outlived {MP_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"{tag}: rank {r} exited {p.returncode}:\n{out[-3000:]}")
+    return outs
+
+
+def mp_rank(job_path):
+    """One rank of [mp_*]: the detect CLI with --data-parallel in f32 and
+    int8, the train CLI, one SSDLite train step on the rank's rows, the
+    training engine's evaluate on the rank's images, the evaluator merge
+    and the meter sum; writes its report to ``rank{r}.json``."""
+    import torch
+
+    from edgeml_tpu_torch.cli import detect as detect_cli
+    from edgeml_tpu_torch.cli import train as train_cli
+    from edgeml_tpu_torch.device import exact_f32_cuda
+    from edgeml_tpu_torch.eval_coco import DetectionEvaluator
+    from edgeml_tpu_torch.models.engine import (
+        evaluate, make_detector, make_family_train_step,
+    )
+    from edgeml_tpu_torch.models.ssdlite import SSDLite
+    from edgeml_tpu_torch.models.train import TrainConfig
+    from edgeml_tpu_torch.parallel import mesh
+    from edgeml_tpu_torch.parallel.meters import SmoothedValue
+
+    with open(job_path) as f:
+        job = json.load(f)
+    mesh.initialize_distributed()
+    me, dev = mesh.rank(), mesh.local_device()
+    report = {"rank": me, "backend": torch.distributed.get_backend(),
+              "device": str(dev), "current": torch.cuda.current_device()}
+    exact_f32_cuda()
+    for tag, flags in (("f32", []), ("int8", ["--int8"])):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            detect_cli.main(detect_cli.getargs(
+                [job["img_dir"], os.path.join(job["root"], f"dp_{tag}"),
+                 "--model", "yolov5n", "--model-path", job["ckpt"],
+                 "--batch-size", str(MP_BATCH), "--data-parallel", *flags]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mono, _, _, gathers = counts()
+        report[tag] = {"s": wall, "img_s": job["n_images"] / MP_RANKS / wall,
+                       "nms_fused": mono, "gather_rows": gathers}
+    # the train CLI; this rank's own save directory (rank 0 alone writes)
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = train_cli.main(train_cli.getargs(
+            job["train_args"] + [os.path.join(job["root"], f"ckpt{me}")]))
+    report["train_losses"] = list(res["loggers"][0].meters["loss"].deque)
+    # one SSDLite step on this rank's rows of the global batch
+    net = make_detector("ssd", 20, TRAIN_SIZE["ssd"])
+    net.load_state_dict(torch.load(job["ssd_train"]))
+    net.to(dev).train()
+    _, step = make_family_train_step(net, TrainConfig(lr=TRAIN_LR))
+    x, tg, valid = (mesh.shard_along(a) for a in train_inputs(
+        job["img_dir"], "ssd"))
+    loss, _ = step(*(torch.from_numpy(a).to(dev) for a in (x, tg, valid)),
+                   TRAIN_LR)
+    report["ssd_loss"] = float(loss)
+    if mesh.is_primary():
+        torch.save({k: v.cpu() for k, v in net.state_dict().items()},
+                   os.path.join(job["root"], "ssd_step.pt"))
+    # evaluate on this rank's images, merged: the suppressor and gather
+    # kernels on the card
+    net = SSDLite(num_classes=91, image_size=320)
+    net.load_state_dict(torch.load(job["ssd_eval"]))
+    net.to(dev)
+    with open(job["eval_data"], "rb") as f:
+        images, gts = pickle.load(f)
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report["eval"] = {k: float(v) for k, v in evaluate(
+            net, mesh.shard_along(images), mesh.shard_along(gts),
+            batch_size=MP_EVAL_BATCH, conf_thres=0.001).items()
+            if k != "per_iou"}
+    report["eval_launches"] = counts()
+    # the evaluator merge on fixed detections, and the meter sum
+    ev = DetectionEvaluator(device=dev)
+    ev.update(*mp_merge_images(me))
+    ev.synchronize_between_processes()
+    got = ev.summarize(verbose=False)
+    report["merge"] = {k: float(got[k]) for k in ("map", "map50", "map75")}
+    report["merge_images"] = len(ev.dets)
+    v = SmoothedValue()
+    v.update(float(me + 1), n=me + 1)
+    v.synchronize_between_processes()
+    report["meter"] = [v.count, v.total]
+    with open(os.path.join(job["root"], f"rank{me}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def mp_merge_images(rank=None):
+    """(detections, ground truth) of the evaluator merge: MP_MERGE_IMAGES
+    fixed images, rank r's the r-th half (all of them for None)."""
+    dets, gts = [], []
+    for i in range(MP_MERGE_IMAGES):
+        rng = np.random.default_rng(100 + i)
+        n = 4 + i % 5
+        dets.append((rng.integers(0, 3, n).astype(np.float32),
+                     np.sort(rng.random((n, 4)) * 50, axis=1)
+                     .astype(np.float32), rng.random(n).astype(np.float32)))
+        gts.append((rng.integers(0, 3, 3).astype(np.float32),
+                    np.sort(rng.random((3, 4)) * 50, axis=1)
+                    .astype(np.float32)))
+    if rank is None:
+        return dets, gts
+    k = MP_MERGE_IMAGES // MP_RANKS
+    return dets[rank * k:(rank + 1) * k], gts[rank * k:(rank + 1) * k]
+
+
+def mp_nccl(out_path):
+    """A world-size-1 NCCL group on the card: ``initialize_distributed``
+    from the launcher's environment, ``allgather_object``, and sums of a
+    card tensor and of a host number (through the card)."""
+    import torch
+
+    from edgeml_tpu_torch.parallel import mesh
+
+    mesh.initialize_distributed()
+    got = {"backend": torch.distributed.get_backend(),
+           "gather": mesh.allgather_object({"rank": mesh.rank(),
+                                            "ragged": list(range(5))}),
+           "sum": mesh.all_sum(torch.arange(4.0, device=mesh.local_device())
+                               ).tolist(),
+           "number": mesh.all_sum(2.5)}
+    torch.distributed.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(got, f)
+
+
+def write_native_checkpoint(path, net):
+    """A pickle the detect CLI serves: {model: {params, stats}, epoch}."""
+    params, stats = net.to_jax_params()
+    with open(path, "wb") as f:
+        pickle.dump({"model": {"params": params, "stats": stats},
+                     "epoch": 0}, f)
+
+
+def flat_tree(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in flat_tree(v, f"{prefix}{k}/").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in flat_tree(v, f"{prefix}{i}/").items()}
+    return {prefix: np.asarray(tree, np.float64)}
+
+
+def checkpoint_errors(got, want, start):
+    """(update norm error, statistics error) of one checkpoint's model
+    against another's: the update (parameters minus ``start``'s) as the
+    norm of the difference over the norm of ``want``'s update, the whole
+    model at once; the statistics as the largest error over each leaf's
+    largest value (at least 1)."""
+    g, w, s0 = (flat_tree(t) for t in (got, want, start))
+    sq_diff = sq_upd = s_err = 0.0
+    for k, wv in w.items():
+        top = k.split("/")[0]
+        if top not in ("params", "stats"):  # the EMA's update count
+            continue
+        if top == "stats":
+            s_err = max(s_err, float(np.abs(g[k] - wv).max())
+                        / max(float(np.abs(wv).max()), 1.0))
+        else:
+            sq_diff += float(((g[k] - wv) ** 2).sum())
+            sq_upd += float(((wv - s0[k]) ** 2).sum())
+    return math.sqrt(sq_diff / sq_upd), s_err
+
+
+def multiprocess_phases(dev, tmp, img_dir, shapes):
+    """The several-process group, two ranks on the one card (gloo), and a
+    world-size-1 NCCL group. Returns {kernel record name: launches over
+    both ranks}."""
+    import torch
+
+    from edgeml_tpu_torch.cli import detect as detect_cli
+    from edgeml_tpu_torch.cli import train as train_cli
+    from edgeml_tpu_torch.data.loader import decode_image
+    from edgeml_tpu_torch.models.common import letterbox_batch
+    from edgeml_tpu_torch.models.engine import (
+        evaluate, make_detector, make_family_train_step,
+    )
+    from edgeml_tpu_torch.models.infer import square_batch
+    from edgeml_tpu_torch.models.train import TrainConfig
+    from edgeml_tpu_torch.eval_coco import DetectionEvaluator
+
+    t_start = time.perf_counter()
+    root = os.path.join(tmp, "mp")
+    os.makedirs(root)
+    names = sorted(os.listdir(img_dir))
+    calib = [decode_image(os.path.join(img_dir, n)) for n in names[:16]]
+    ckpt = os.path.join(root, "yolo.pkl")
+    write_native_checkpoint(ckpt, seeded_yolov5("n", 1, torch.from_numpy(
+        letterbox_batch(calib, 640)[0]).to(dev), dev).cpu())
+    ssd_eval = seeded_ssdlite(3, torch.from_numpy(
+        square_batch(calib, 320)).to(dev), dev)
+    torch.save(ssd_eval.state_dict(), os.path.join(root, "ssd_eval.pt"))
+    images = [decode_image(os.path.join(img_dir, n))
+              for n in names[:MP_EVAL_IMAGES]]
+    gts = own_gt(ssd_eval, images, "ssd")
+    with open(os.path.join(root, "eval.pkl"), "wb") as f:
+        pickle.dump((images, gts), f)
+    ssd_train = make_detector("ssd", 20, TRAIN_SIZE["ssd"],
+                              generator=torch.Generator().manual_seed(5))
+    torch.save(ssd_train.state_dict(), os.path.join(root, "ssd_train.pt"))
+    train_dir = os.path.join(root, "train_images")
+    os.makedirs(train_dir)
+    for n in names[:MP_TRAIN_IMAGES]:
+        shutil.copy(os.path.join(img_dir, n), train_dir)
+    lab_dir = os.path.join(root, "labels")
+    write_train_labels(train_dir, lab_dir)
+    train_args = [train_dir, "--label-dir", lab_dir, "--model", "yolov5n",
+                  "--dataset", "coco", "-b", str(MP_TRAIN_BATCH),
+                  "--epochs", "1", "--preset", "yolo", "--augment", "yolo",
+                  "--ema", "--img-size", str(TRAIN_SIZE["yolo"])]
+    job = os.path.join(root, "job.json")
+    with open(job, "w") as f:
+        json.dump({"root": root, "img_dir": img_dir, "ckpt": ckpt,
+                   "n_images": len(names), "train_args": train_args,
+                   "ssd_train": os.path.join(root, "ssd_train.pt"),
+                   "ssd_eval": os.path.join(root, "ssd_eval.pt"),
+                   "eval_data": os.path.join(root, "eval.pkl")}, f)
+    # the two ranks, and the NCCL group beside them
+    t0 = time.perf_counter()
+    ranks = mp_spawn("mp_rank", job, MP_RANKS)
+    nccl_out = os.path.join(root, "nccl.json")
+    nccl = mp_spawn("mp_nccl", nccl_out, 1)
+    outs = mp_wait("mp_ranks", ranks)
+    spawn_s = time.perf_counter() - t0
+    said = mp_wait("mp_nccl", nccl)[0]
+    reports = []
+    for r in range(MP_RANKS):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    chosen = [ln for o in outs for ln in o.splitlines()
+              if ln.startswith("[distributed] backend=")]
+    line("mp_group", ranks=MP_RANKS, backend=repr(chosen),
+         devices=repr([(r["device"], r["current"]) for r in reports]),
+         ranks_s=f"{spawn_s:.1f}", smi=repr(SMI))
+    if len(chosen) != 1 or any(r["backend"] != "gloo" for r in reports):
+        fail("mp_group: the two ranks on one card must run gloo, chosen "
+             "and printed once")
+
+    # (iv) NCCL, one rank on the card
+    with open(nccl_out) as f:
+        got = json.load(f)
+    line("mp_nccl", backend=got["backend"], printed=repr(said.strip()),
+         gather=repr(got["gather"]), sum=repr(got["sum"]),
+         number=got["number"])
+    if got["backend"] != "nccl" or got["gather"] != [
+            {"rank": 0, "ragged": list(range(5))}] or \
+            got["sum"] != [0.0, 1.0, 2.0, 3.0] or got["number"] != 2.5:
+        fail("mp_nccl: the world-size-1 NCCL group went wrong")
+
+    # (i) serving: the two ranks' files against one process's on the card
+    launches = {"nms_fused_greedy_keep": 0, "nms_blocked_greedy_keep": 0,
+                "gather_rows": 0}
+    for tag, flags in (("f32", []), ("int8", ["--int8"])):
+        one = os.path.join(root, f"one_{tag}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            detect_cli.main(detect_cli.getargs(
+                [img_dir, one, "--model", "yolov5n", "--model-path", ckpt,
+                 "--batch-size", str(MP_BATCH), *flags]))
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        dp = os.path.join(root, f"dp_{tag}")
+        n_rows = check_files(dp, shapes, 80, 0.001)
+        rows_vs_cpu(f"mp_serve_{tag}_files",
+                    *([np.load(os.path.join(d, n)) for n in names]
+                      for d in (dp, one)), shapes,
+                    "the two ranks' files", against="one process's")
+        per = [r[tag] for r in reports]
+        line(f"mp_serve_{tag}", images=len(names), global_batch=MP_BATCH,
+             rank_batch=MP_BATCH // MP_RANKS, rows=n_rows,
+             nms_fused=repr([p["nms_fused"] for p in per]),
+             gather_rows=repr([p["gather_rows"] for p in per]),
+             rank_img_s=repr([round(p["img_s"], 1) for p in per]),
+             rank_s=repr([round(p["s"], 2) for p in per]),
+             one_process_img_s=f"{len(names) / one_s:.1f}", smi=repr(SMI))
+        if any(p["nms_fused"] == 0 or p["gather_rows"] == 0 for p in per):
+            fail(f"mp_serve_{tag}: a rank did not launch the suppressor and "
+                 f"gather kernels")
+        launches["nms_fused_greedy_keep"] += sum(p["nms_fused"] for p in per)
+        launches["gather_rows"] += sum(p["gather_rows"] for p in per)
+
+    # (ii) training: the train CLI, two ranks against one process
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = train_cli.main(train_cli.getargs(
+            train_args + [os.path.join(root, "ckpt_one")]))
+    want = list(res["loggers"][0].meters["loss"].deque)
+    l_err = max(abs(a - b) / abs(b) for r in reports
+                for a, b in zip(r["train_losses"], want))
+    written = sorted(os.listdir(os.path.join(root, "ckpt0")))
+    with open(os.path.join(root, "ckpt0", "checkpoint.pth"), "rb") as f:
+        two = pickle.load(f)
+    with open(os.path.join(root, "ckpt_one", "checkpoint.pth"), "rb") as f:
+        one = pickle.load(f)
+    start = make_detector("yolov5n", 80, TRAIN_SIZE["yolo"],
+                          generator=torch.Generator().manual_seed(0))
+    start = dict(zip(("params", "stats"), start.to_jax_params()))
+    u_err, s_err = checkpoint_errors(two["model"], one["model"], start)
+    e_err, _ = checkpoint_errors(two["ema"], one["ema"], start)
+    u_tol = TRAIN_UPDATE_TOL["yolo"]
+    line("mp_train_cli", steps=len(want), global_batch=MP_TRAIN_BATCH,
+         losses=repr([round(v, 6) for v in want]),
+         loss_rel_err=f"{l_err:.3e}", update_norm_err=f"{u_err:.3e}",
+         ema_update_norm_err=f"{e_err:.3e}", stats_err=f"{s_err:.3e}",
+         tol=f"loss {TRAIN_LOSS_TOL:g}, update {u_tol:g}, stats "
+             f"{TRAIN_STATS_TOL:g}", rank0_files=repr(written))
+    if len(want) != MP_TRAIN_IMAGES // MP_TRAIN_BATCH or \
+            l_err > TRAIN_LOSS_TOL or u_err > u_tol or e_err > u_tol or \
+            s_err > TRAIN_STATS_TOL:
+        fail("mp_train_cli: the two-rank train CLI disagrees with one "
+             "process")
+    if written != ["checkpoint.pth", "model_0.pth"] or \
+            os.path.exists(os.path.join(root, "ckpt1")):
+        fail("mp_train_cli: rank 0 alone must write the checkpoints")
+    out = os.path.join(root, "served")
+    with contextlib.redirect_stdout(io.StringIO()):
+        detect_cli.main(detect_cli.getargs(
+            [train_dir, out, "--model", "yolov5n", "--model-path",
+             os.path.join(root, "ckpt0", "checkpoint.pth"), "--batch-size",
+             "32", "--conf-thres", str(SERVE_CONF)]))
+    served = check_files(out, shapes[:MP_TRAIN_IMAGES], 80, SERVE_CONF)
+    line("mp_train_served", images=MP_TRAIN_IMAGES, rows=served)
+    if served == 0:
+        fail("mp_train_served: the two-rank checkpoint wrote no detections")
+
+    # the SSDLite step at batch 32, two ranks against one process
+    before = {k: v.clone() for k, v in ssd_train.state_dict().items()}
+    net = copy.deepcopy(ssd_train).to(dev).train()
+    _, step = make_family_train_step(net, TrainConfig(lr=TRAIN_LR))
+    loss, _ = step(*(torch.from_numpy(a).to(dev) for a in train_inputs(
+        img_dir, "ssd")), TRAIN_LR)
+    two_net = copy.deepcopy(ssd_train)
+    two_net.load_state_dict(torch.load(os.path.join(root, "ssd_step.pt")))
+    # step_errors(held, reference, ...): the two ranks' step held against
+    # the one process's
+    l_err, u_err, u_max, s_err, worst = step_errors(
+        two_net, net.cpu(), before,
+        {"cuda": reports[0]["ssd_loss"], "cpu": float(loss)})
+    u_tol = TRAIN_UPDATE_TOL["ssd"]
+    line("mp_ssd_step", batch=TRAIN_BATCH, loss=f"{float(loss):.6f}",
+         rank_losses=repr([r["ssd_loss"] for r in reports]),
+         loss_rel_err=f"{l_err:.3e}", update_norm_err=f"{u_err:.3e}",
+         update_max_err=f"{u_max:.3e}", worst_param=worst,
+         stats_err=f"{s_err:.3e}", tol=f"loss {TRAIN_LOSS_TOL:g}, update "
+         f"{u_tol:g}, stats {TRAIN_STATS_TOL:g}")
+    if l_err > TRAIN_LOSS_TOL or u_err > u_tol or s_err > TRAIN_STATS_TOL \
+            or reports[0]["ssd_loss"] != reports[1]["ssd_loss"]:
+        fail("mp_ssd_step: the two-rank step disagrees with one process")
+
+    # (iii) merges: evaluate (SSDLite, the kernels), the evaluator, meters
+    with contextlib.redirect_stdout(io.StringIO()):
+        one_eval = evaluate(ssd_eval, images, gts, batch_size=MP_EVAL_BATCH,
+                            conf_thres=0.001)
+    ap_err = max(abs(r["eval"][k] - one_eval[k]) for r in reports
+                 for k in ("map", "map50", "map75"))
+    blocked = [r["eval_launches"][1] for r in reports]
+    line("mp_eval_ssd", images=MP_EVAL_IMAGES, map=f"{one_eval['map']:.6f}",
+         map50=f"{one_eval['map50']:.6f}", max_ap_err=f"{ap_err:.3e}",
+         tol=EVAL_AP_TOL, nms_blocked=repr(blocked),
+         gather_rows=repr([r["eval_launches"][3] for r in reports]))
+    if ap_err > EVAL_AP_TOL or not 0 < one_eval["map50"] <= 1 or \
+            min(blocked) == 0:
+        fail("mp_eval_ssd: the merged evaluate disagrees with one process "
+             "or did not launch the blocked suppressor")
+    launches["nms_blocked_greedy_keep"] += sum(blocked)
+    launches["gather_rows"] += sum(r["eval_launches"][3] for r in reports)
+    ev = DetectionEvaluator(device=dev)
+    ev.update(*mp_merge_images())
+    want = ev.summarize(verbose=False)
+    same = all(r["merge"][k] == float(want[k]) for r in reports
+               for k in ("map", "map50", "map75"))
+    meters = [r["meter"] for r in reports]
+    line("mp_merge", images=[r["merge_images"] for r in reports],
+         map=f"{want['map']:.6f}", bit_equal=same, meters=repr(meters))
+    want_meter = [sum(r + 1 for r in range(MP_RANKS)),
+                  float(sum((r + 1) ** 2 for r in range(MP_RANKS)))]
+    if not same or any(r["merge_images"] != MP_MERGE_IMAGES
+                       for r in reports) or \
+            any(m != want_meter for m in meters):
+        fail("mp_merge: the merged evaluator or meters disagree")
+    line("mp_wall", s=f"{time.perf_counter() - t_start:.1f}")
+    return launches
 
 
 if __name__ == "__main__":

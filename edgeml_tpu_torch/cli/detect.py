@@ -15,8 +15,14 @@ checkpoint (the pickle that either package's train CLI writes, its model
 in the reference package's tree layout), preferring its EMA shadow when it
 has one. ``--int8`` serves the int8 post-training-quantized trunk of a
 YOLOv5 or ``ssd`` model, calibrated on the first images of IMG_DIR; for
-YOLOv5 ``--int8 --bf16`` adds the bf16 score tail. ``--data-parallel`` and
-directory (orbax) checkpoints are not yet ported and exit with a message.
+YOLOv5 ``--int8 --bf16`` adds the bf16 score tail. Directory (orbax)
+checkpoints are not read and exit with a message.
+
+``--data-parallel`` under several processes (``torchrun --nproc-per-node N
+-m edgeml_tpu_torch.cli.detect ... --data-parallel``) serves each global
+batch (``--batch-size``, a multiple of N) by rows, one device a rank, each
+rank writing its own images' files; in one process it runs the
+one-process path on its device.
 """
 
 from __future__ import annotations
@@ -139,7 +145,9 @@ def main(opts):
         class_map = (coco_to_yolov5 if opts.dataset == "coco"
                      else {i: i - 1 for i in range(1, 21 + 1)})
     if opts.data_parallel:
-        raise SystemExit("--data-parallel is not yet ported")
+        from ..parallel.mesh import initialize_distributed
+
+        initialize_distributed(opts.device)
     net = load_detector(opts.model, opts.model_path, num_class)
 
     dtype = torch.bfloat16 if opts.bf16 else None
@@ -160,6 +168,7 @@ def main(opts):
         class_map=class_map,
         dtype=dtype,
         device=opts.device,
+        data_parallel=opts.data_parallel,
     )
 
 
@@ -182,7 +191,9 @@ def getargs(argv=None):
     args.add_argument('--format', type=str, default="npy", choices=["npy", "txt"],
                       help="Per-image output format.")
     args.add_argument('--data-parallel', action="store_true",
-                      help="Not yet ported.")
+                      help="Under torchrun, serve each global batch by rows "
+                           "over the ranks (one device a rank); in one "
+                           "process, the one-process path.")
     args.add_argument('--bf16', action="store_true",
                       help="bfloat16 serving (trunk + scores; boxes stay f32).")
     args.add_argument('--int8', action="store_true",

@@ -6,7 +6,8 @@ The same positional arguments and flags as the JAX package's ``reward.py``,
 plus ``--device`` (default ``cuda``). Writes ``orie{E}.npz`` (float32
 rewards) or ``dcsb.npz`` (integer rewards) with the keys ``reward`` and
 ``time``. The ensemble draw is the port's own (deterministic in ``--seed``;
-see ``reward/orie.py``).
+see ``reward/orie.py``). ORIE deals its images over every visible CUDA
+card when there are several (one card or the CPU: one device).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ def main(opts):
     reward, execution_time = compute_rewards(
         weak_data, strong_data, labels, method=opts.method,
         num_ensemble=opts.num_ensemble, seed=opts.seed, verbose=opts.verbose,
-        batch=opts.batch, device=dev)
+        batch=opts.batch, device=dev, mesh="auto")
     print(f"Program takes {execution_time:.1f} seconds "
           f"({execution_time / 60:.1f}m/{execution_time / 3600:.2f}h).")
     Path(opts.save_dir).mkdir(parents=True, exist_ok=True)

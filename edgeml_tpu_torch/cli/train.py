@@ -9,7 +9,14 @@ CUDA device it raises unless ``--device cpu`` is given). Families:
 ``yolov5n``..``yolov5x``, ``ssd`` (SSDLite320-MobileNetV3-Large),
 ``retinanet`` (RetinaNet-ResNet50-FPN-v2) and ``faster_rcnn`` (Faster
 R-CNN-ResNet50-FPN-v2, its RoI sampling drawn from a generator seeded with
-``--seed``). Trains on one device.
+``--seed``). Trains on one device, or under several processes
+(``torchrun --nproc-per-node N -m edgeml_tpu_torch.cli.train ...``) on
+one device a rank for YOLOv5 and SSDLite: every rank draws the same
+epoch permutation, takes its contiguous rows of each global batch
+(``-b`` is global and must split over the ranks), and the step equals the
+one-process step on the whole batch (``models/engine.py TrainStep``); rank
+0 alone writes the checkpoints. RetinaNet and Faster R-CNN train in one
+process only.
 
 Data: images plus YOLO-format label files (``--label-dir``), or a raw
 VOCdevkit tree (``--voc-root``, 07+12 trainval). Images stream from disk
@@ -70,8 +77,18 @@ def main(opts):
         ModelEMA, TrainConfig, load_checkpoint, load_jax_tree, lr_at,
         pad_targets, save_checkpoint, yolo_recipe_config,
     )
+    from ..parallel.mesh import (
+        initialize_distributed, is_primary, local_device, replicate,
+        shard_along, world_size,
+    )
 
-    dev = resolve_device(opts.device)
+    initialize_distributed(opts.device)
+    world = world_size()
+    if opts.batch_size % world:
+        raise SystemExit(f"--batch-size {opts.batch_size} does not split "
+                         f"over {world} ranks")
+    dev = resolve_device(opts.device) if world == 1 \
+        else local_device(opts.device)
     if dev.type == "cuda":
         exact_f32_cuda()
     if opts.preset == "yolo":
@@ -106,6 +123,7 @@ def main(opts):
         opt.load_state_dict(opt_state)
         opts.start_epoch = payload["epoch"] + 1
         ema_payload = payload.get("ema")
+    replicate(net)  # every rank starts from rank 0's weights
     if opts.ema:
         ema = ModelEMA(net)
         if ema_payload is not None:
@@ -188,10 +206,12 @@ def main(opts):
             for f, im in items:
                 lab = raw_labels[file_index[f]]
                 ex.append((im, lab if len(lab) else empty))
+            # the whole global batch is decoded (mosaic partners come from
+            # all of it); this rank makes its own rows of it
             res = yolo_augment_batch(
                 ex, size,
                 [opts.seed, epoch_state["epoch"], file_index[items[0][0]]],
-                hsv=hsv_arg)
+                hsv=hsv_arg, samples=shard_along(list(range(len(ex)))))
             targets, valid = pad_targets(res[1], opts.max_targets)
             # device-mode HSV: the per-image gains ride along
             return (res[0], targets, valid) + tuple(res[2:])
@@ -227,8 +247,14 @@ def main(opts):
             return n // bs
 
         def __iter__(self):
-            for batch in iter_batches(img_dir, files, bs, make_batch,
-                                      order=self.perm, prefetch=opts.prefetch,
+            if yolo_aug:  # global batches; make_batch keeps this rank's rows
+                order, span = self.perm, bs
+            else:  # this rank's rows of each global batch
+                order = shard_along(self.perm[:len(self) * bs].reshape(
+                    -1, bs), dim=1).reshape(-1)
+                span = bs // world
+            for batch in iter_batches(img_dir, files, span, make_batch,
+                                      order=order, prefetch=opts.prefetch,
                                       drop_last=True):
                 imgs = torch.from_numpy(batch[0]).to(dev)
                 if len(batch) == 4:  # device-mode HSV jitter (ops/color.py)
@@ -246,7 +272,8 @@ def main(opts):
             lambda it: lr_at(cfg, epoch, it, steps_per_epoch),
             print_freq=opts.print_freq,
             after_step=None if ema is None else lambda: ema.update(net))
-        if opts.save_dir:
+        logger.synchronize_between_processes()
+        if opts.save_dir and is_primary():
             os.makedirs(opts.save_dir, exist_ok=True)
             if epoch % 10 == 0:
                 save_checkpoint(

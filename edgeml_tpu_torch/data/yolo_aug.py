@@ -228,7 +228,7 @@ def scale_translate(canvas: np.ndarray, cls: np.ndarray, boxes: np.ndarray,
 
 def yolo_augment_batch(examples: list, size: int, base_rng_key,
                        scale: float = 0.5, translate: float = 0.1,
-                       fliplr: float = 0.5, hsv=True):
+                       fliplr: float = 0.5, hsv=True, samples=None):
     """One training batch through the full recipe.
 
     :param examples: list of (image HWC float [0,1], (cls, xyxy normalized)).
@@ -238,16 +238,20 @@ def yolo_augment_batch(examples: list, size: int, base_rng_key,
         "device" — draw the per-image gains from the same rng stream but
         leave the pixels untouched, returning the gains for the training
         step to apply on the device (``ops/color.hsv_jitter``).
+    :param samples: the batch positions to make (default: all), each as the
+        whole batch would make it (its own seed, mosaic partners from the
+        whole batch): a rank's rows of a global batch.
     :return: (images (B, size, size, 3) float32,
         rows list of (m, 5) [cls, x, y, w, h] normalized per image)
         — plus gains (B, 3) float32 when hsv == "device".
     """
     b = len(examples)
+    samples = list(range(b)) if samples is None else list(samples)
     device_hsv = hsv == "device"
-    gains = np.ones((b, 3), np.float32) if device_hsv else None
-    out_imgs = np.empty((b, size, size, 3), np.float32)
+    gains = np.ones((len(samples), 3), np.float32) if device_hsv else None
+    out_imgs = np.empty((len(samples), size, size, 3), np.float32)
     out_rows = []
-    for i in range(b):
+    for o, i in enumerate(samples):
         rng = np.random.default_rng(list(base_rng_key) + [i])
         part = [i] + list(rng.choice(b, 3, replace=True))
         imgs = [examples[p][0] for p in part]
@@ -257,7 +261,7 @@ def yolo_augment_batch(examples: list, size: int, base_rng_key,
             canvas, cls, boxes, size, rng, scale, translate
         )
         if device_hsv:
-            gains[i] = hsv_gains(rng)  # same stream position as host mode
+            gains[o] = hsv_gains(rng)  # same stream position as host mode
         elif hsv:
             img = hsv_jitter(img, rng)
         if rng.random() < fliplr:
@@ -265,7 +269,7 @@ def yolo_augment_batch(examples: list, size: int, base_rng_key,
             boxes = boxes[:, [2, 1, 0, 3]].copy() if len(cls) else boxes
             if len(cls):
                 boxes[:, [0, 2]] = size - boxes[:, [0, 2]]
-        out_imgs[i] = img
+        out_imgs[o] = img
         if len(cls):
             x1, y1, x2, y2 = boxes.T
             rows = np.stack(

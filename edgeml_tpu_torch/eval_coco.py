@@ -13,8 +13,9 @@ two styles:
   * style="coco" (the exactness path): full COCOeval semantics for bbox,
     segm and keypoints on the host (``coco_matching.evaluate_coco``).
 
-Only one process is supported: ``synchronize_between_processes`` is a
-no-op there and raises under a multi-process ``torch.distributed`` group.
+Under several processes each rank accumulates its own images and
+``synchronize_between_processes`` gathers every rank's, in rank order,
+before ``summarize``; in one process it is a no-op.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from .coco_matching import evaluate_coco
 from .data.io import _batched_correct
 from .device import resolve_device
 from .ops.map_kernel import build_pool, map_per_threshold
+from .parallel.mesh import allgather_object, world_size
 
 COCO_IOUV = np.round(np.linspace(0.5, 0.95, 10), 2)
 
@@ -75,14 +77,14 @@ class DetectionEvaluator:
             self.gts.append(store(g, 3))
 
     def synchronize_between_processes(self):
-        """Gather every process's accumulated images before summarizing: a
-        no-op for one process. Several processes are not ported yet."""
-        if torch.distributed.is_available() and \
-                torch.distributed.is_initialized() and \
-                torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "DetectionEvaluator across several processes is not yet "
-                "ported (one process only)")
+        """Gather every process's accumulated images, ordered by rank, before
+        summarizing: a no-op for one process. Payloads may be ragged (each
+        rank's image count differs)."""
+        if world_size() == 1:
+            return
+        gathered = allgather_object((self.dets, self.gts))
+        self.dets = [d for dets, _ in gathered for d in dets]
+        self.gts = [g for _, gts in gathered for g in gts]
 
     def summarize(self, verbose: bool = True) -> dict:
         """Returns {'map': AP@[.5:.95], 'map50': AP@.5, 'map75': AP@.75,

@@ -34,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..data.loader import resize_bilinear
+from ..parallel.mesh import all_sum, world_size
 
 
 class CastCache:
@@ -94,20 +95,81 @@ def bn_train(y, bn: nn.BatchNorm2d, weight, bias):
     mean and biased variance, then ``* weight + bias``, all in f32 whatever
     ``y``'s dtype (the output is cast back to it); update ``bn``'s running
     stats in place as ``(1 - m) * old + m * batch`` with the unbiased
-    variance. The reference's ``bn_apply(train=True)``."""
+    variance. The reference's ``bn_apply(train=True)``. Under several
+    processes the batch is the global one: the moments are summed over the
+    ranks (``CrossRankBatchNorm``)."""
     yf = y.to(torch.float32)
-    mean = yf.mean(dim=(0, 2, 3))
-    var = (yf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
-    n = y.numel() / mean.numel()
+    if world_size() > 1:
+        n = all_sum(float(y.numel() // y.shape[1]))
+        out, mean, var = CrossRankBatchNorm.apply(yf, weight, bias, bn.eps,
+                                                  n)
+    else:
+        mean = yf.mean(dim=(0, 2, 3))
+        var = (yf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+        n = y.numel() / mean.numel()
+        out = None
     with torch.no_grad():
         m = bn.momentum
         unbiased = var * n / max(n - 1.0, 1.0)
         bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
         bn.running_var.copy_((1 - m) * bn.running_var + m * unbiased)
-    out = (yf - mean[:, None, None]) * torch.rsqrt(var + bn.eps)[:, None,
-                                                                  None]
-    out = out * weight[:, None, None] + bias[:, None, None]
+    if out is None:
+        out = (yf - mean[:, None, None]) \
+            * torch.rsqrt(var + bn.eps)[:, None, None]
+        out = out * weight[:, None, None] + bias[:, None, None]
     return out.to(y.dtype)
+
+
+class CrossRankBatchNorm(torch.autograd.Function):
+    """Training-mode BatchNorm over the batch of every rank together, the
+    global batch that one process would see.
+
+    Forward: each rank's per-channel sum and sum of squares (accumulated in
+    f64, so ``E[x^2] - E[x]^2`` loses nothing to cancellation) are summed
+    over the ranks in one all-reduce; the mean and biased variance follow.
+    Backward: with ``xh`` the normalised input and ``dy`` the output
+    gradient, the per-channel sums of ``dy`` and ``dy * xh`` are summed over
+    the ranks in one all-reduce, and
+
+        dx = weight * rsqrt(var + eps) * (dy - (sum dy + xh * sum dy*xh) / N)
+
+    The weight's and bias's gradients stay this rank's part (the gradient
+    reduction sums them). Returns (out f32, mean, var) of (B, C, H, W) f32
+    ``y``; ``n`` is the global count per channel."""
+
+    @staticmethod
+    def forward(ctx, y, weight, bias, eps, n):
+        dims = (0, 2, 3)
+        sums = all_sum(torch.stack([y.sum(dims, dtype=torch.float64),
+                                    y.square().sum(dims,
+                                                   dtype=torch.float64)]))
+        mean64 = sums[0] / n
+        var64 = torch.clamp_min(sums[1] / n - mean64.square(), 0.0)
+        mean, var = mean64.to(torch.float32), var64.to(torch.float32)
+        inv = torch.rsqrt(var + eps)
+        xh = (y - mean[:, None, None]) * inv[:, None, None]
+        w = weight.to(torch.float32)
+        out = xh * w[:, None, None] + bias.to(torch.float32)[:, None, None]
+        ctx.save_for_backward(xh, w, inv)
+        ctx.n = n
+        ctx.dtypes = (weight.dtype, bias.dtype)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        xh, w, inv = ctx.saved_tensors
+        dims = (0, 2, 3)
+        dy = dout.to(torch.float32)
+        dw = (dy * xh).sum(dims)
+        db = dy.sum(dims)
+        sums = all_sum(torch.stack([db.to(torch.float64),
+                                    dw.to(torch.float64)]))
+        s_dy = (sums[0] / ctx.n).to(torch.float32)
+        s_dyxh = (sums[1] / ctx.n).to(torch.float32)
+        dx = (dy - s_dy[:, None, None] - xh * s_dyxh[:, None, None]) \
+            * (w * inv)[:, None, None]
+        return dx, dw.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None, None
 
 
 def running_stats(module: nn.Module) -> dict:

@@ -21,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from ..parallel.mesh import all_sum, world_size
 from ..parallel.meters import MetricLogger
 from .faster_rcnn import PRE_NMS, FasterRCNN
 from .loss import yolo_loss
@@ -85,9 +86,22 @@ class TrainStep:
     RoIAlign and box head and the four losses (``faster_rcnn_loss``),
     drawing its sampling ranks with ``draw_fn(b, n_rpn, n_roi, device)``:
     by default from a ``torch.Generator`` on the net's device seeded with
-    ``seed``; a caller may replace it to inject draws."""
+    ``seed``; a caller may replace it to inject draws.
+
+    Under several processes (YOLOv5 and SSDLite) each rank passes its rows
+    of one global batch and the step equals the one-process step on the
+    whole batch: BatchNorm takes the global batch's moments
+    (``common.CrossRankBatchNorm``), the losses divide by global counts,
+    the gradients are summed over the ranks (each rank's loss is its share
+    of the global one, so the sum is the whole-batch gradient), and the
+    loss and parts returned are the global ones, equal on every rank."""
 
     def __init__(self, net, opt, dtype=None, seed: int = 0):
+        if world_size() > 1 and isinstance(net, (RetinaNet, FasterRCNN)):
+            raise NotImplementedError(
+                f"{type(net).__name__} training under several processes is "
+                "not yet ported (ROADMAP Queue 1: multi-process training of "
+                "RetinaNet and Faster R-CNN); YOLOv5 and SSDLite are")
         self.net, self.opt, self.dtype = net, opt, dtype
         if isinstance(net, YoloV5):
             self.loss = self._yolo_loss
@@ -144,13 +158,15 @@ class TrainStep:
                                 draws, self.dtype)
 
     def grads(self, total):
-        return torch.autograd.grad(total, self.opt.params)
+        return all_sum(list(torch.autograd.grad(total, self.opt.params)))
 
     def __call__(self, images, targets, valid, lr):
         self.net.train()
         total, parts = self.loss(self.forward(images), targets, valid)
         self.opt.step(self.grads(total), lr)
-        return total.detach(), {k: v.detach() for k, v in parts.items()}
+        names = list(parts)
+        out = all_sum([total.detach()] + [parts[k].detach() for k in names])
+        return out[0], dict(zip(names, out[1:]))
 
 
 def make_family_train_step(net, cfg: TrainConfig, dtype=None, seed: int = 0):
@@ -169,7 +185,9 @@ def evaluate(net, images, gt_rows, batch_size: int = 8,
     letterboxed (``infer.detect_batch``), SSDLite, RetinaNet and Faster
     R-CNN square-resized and normalised (``infer._detect_generic``, their
     ``detect`` tails); the last batch is padded with its last image. The
-    net is left in the mode it came in."""
+    net is left in the mode it came in. Under several processes each rank
+    passes its own images and the summary covers every rank's, merged in
+    rank order (``DetectionEvaluator.synchronize_between_processes``)."""
     from ..eval_coco import DetectionEvaluator
     from .common import letterbox_batch
     from .infer import _detect_generic, detect_batch, square_batch

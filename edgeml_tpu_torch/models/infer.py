@@ -15,6 +15,11 @@ images of the directory itself.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and none asked for they raise.
+
+``run_detection(data_parallel=True)`` under a process group of several
+ranks (``parallel/mesh.py``) serves each global batch by rows: every rank
+runs its contiguous block of the batch on its own device and writes the
+files of its own images.
 """
 
 from __future__ import annotations
@@ -30,9 +35,11 @@ from ..data.loader import decode_image, iter_batches, list_images, \
     resize_bilinear
 from ..device import exact_f32_cuda, resolve_device
 from ..ops.nms import nms_split_batch
+from ..parallel.mesh import local_device, replicate, shard_along, \
+    world_size
 from .common import letterbox_batch
 from .faster_rcnn import FasterRCNN
-from .quant import prepare_int8, q8_predict
+from .quant import prepare_int8, q8_predict, tree_to
 from .quant_ssd import prepare_int8_ssd, q8_ssd_apply
 from .retinanet import RetinaNet, retina_postprocess
 from .ssd_loss import ssd_postprocess
@@ -181,6 +188,7 @@ def run_detection(
     class_map=None,
     dtype=None,
     device=None,
+    data_parallel: bool = False,
 ):
     """Detect every image in img_dir; save per-image detection files.
 
@@ -197,6 +205,12 @@ def run_detection(
         "int8-bf16" casts YOLOv5's dequantized obj/cls logits to bf16 (the
         bf16 NMS tail); SSDLite's int8 logits stay f32 either way.
     :param device: "cuda" (the default when None) or "cpu".
+    :param data_parallel: under a process group of several ranks, serve each
+        global batch of ``batch_size`` images (a multiple of the world size)
+        by rows: this rank runs its contiguous block of it on
+        ``local_device(device)`` and writes its own images' files. The net's
+        weights and the int8 tree are rank 0's, and every rank calibrates
+        int8 on the same global images. In one process: the path above.
     """
     is_yolo = isinstance(net, YoloV5)
     int8 = isinstance(dtype, str)
@@ -205,7 +219,11 @@ def run_detection(
     if int8 and not (is_yolo or isinstance(net, SSDLite)):
         raise ValueError(
             "int8 serving is implemented for YOLO and SSDLite only")
-    dev = resolve_device(device)
+    world = world_size() if data_parallel else 1
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} not divisible by the "
+                         f"world size {world}")
+    dev = resolve_device(device) if world == 1 else local_device(device)
     if not (is_yolo or isinstance(net, (SSDLite, RetinaNet, FasterRCNN))):
         raise TypeError(f"run_detection: {type(net).__name__} is not yet "
                         f"ported (YOLOv5, SSDLite, RetinaNet and Faster "
@@ -213,6 +231,8 @@ def run_detection(
     if dev.type == "cuda":
         exact_f32_cuda()
     net.to(dev).eval()
+    if world > 1:
+        replicate(net)
     names = list_images(img_dir)
     Path(save_dir).mkdir(parents=True, exist_ok=True)
     q8 = None
@@ -229,13 +249,22 @@ def run_detection(
             q8 = prepare_int8_ssd(net, lambda i: xc, iters=1).tree
             dtype = None
         del xc
+        if world > 1:  # one tree, rank 0's, as the reference replicates one
+            q8 = tree_to(replicate(tree_to(q8, "cpu")), dev)
+
+    local_bs = batch_size // world
+    # this rank's rows of each global batch (the tail batch's may be short
+    # or empty)
+    order = [i for s in range(0, len(names), batch_size)
+             for i in shard_along(list(range(s, s + batch_size)))
+             if i < len(names)]
 
     def make_batch(items):
         """Worker thread: letterbox or square-resize; pad the tail batch to
         full size."""
         chunk_names = [n for n, _ in items]
         imgs = [im for _, im in items]
-        imgs_p = imgs + [imgs[-1]] * (batch_size - len(imgs))
+        imgs_p = imgs + [imgs[-1]] * (local_bs - len(imgs))
         if not is_yolo:
             return chunk_names, square_batch(imgs_p, net.image_size), None, \
                 None
@@ -260,7 +289,7 @@ def run_detection(
                         )
 
     for chunk_names, arr, meta, hw in iter_batches(
-        img_dir, names, batch_size, make_batch
+        img_dir, names, local_bs, make_batch, order=order
     ):
         if is_yolo:
             dets, valid = detect_batch(

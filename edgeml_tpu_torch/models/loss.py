@@ -9,6 +9,11 @@ into the grid with max-combine (deterministic where two candidates land on
 one cell), classification is one-hot BCE. Hyper-parameters are the yolov5
 defaults: box 0.05, cls 0.5, obj 1.0, anchor_t 4.0, level balance
 (4.0, 1.0, 0.4); the total is scaled by the batch size.
+
+Under several processes each rank holds rows of one global batch: the
+normalisers (matched candidates per level, grid cells, the batch size) are
+summed over the ranks first, so the ranks' losses add up to the loss of
+the global batch.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import math
 
 import torch
 
+from ..parallel.mesh import all_sum, world_size
 from .yolov5 import STRIDES
 
 HYP = dict(box=0.05, cls=0.5, obj=1.0, anchor_t=4.0)
@@ -60,6 +66,8 @@ def ciou(b1, b2, eps=1e-7):
 def yolo_loss(net, heads, targets, target_valid):
     """Total loss (scalar) and its parts {box, obj, cls}, averaged like
     yolov5: per-level means, summed, the total scaled by the batch size.
+    Under several processes: this rank's share of the global batch's loss
+    and parts (their sums over the ranks are the global ones).
 
     :param net: the YoloV5 module (its anchors, ``na``, ``num_classes``).
     :param heads: per level the raw (B, H, W, na, no) f32 outputs.
@@ -67,6 +75,7 @@ def yolo_loss(net, heads, targets, target_valid):
     :param target_valid: (B, T) bool.
     """
     b, _ = target_valid.shape
+    spread = world_size() > 1
     na, nc = net.na, net.num_classes
     dev = targets.device
     f32 = heads[0].dtype
@@ -119,7 +128,7 @@ def yolo_loss(net, heads, targets, target_valid):
             rel_xy.shape)], -1)
         iou = ciou(pbox, tbox)
         vf = valid.to(f32)
-        nv = torch.clamp_min(vf.sum(), 1.0)
+        nv = torch.clamp_min(all_sum(vf.sum()), 1.0)
         lbox = lbox + ((1.0 - iou) * vf).sum() / nv
 
         # the objectness target: the detached IoU, max-combined per cell
@@ -129,7 +138,9 @@ def yolo_loss(net, heads, targets, target_valid):
         tobj = tobj.scatter_reduce(0, cell_idx.reshape(-1),
                                    iou_pos.reshape(-1), "amax",
                                    include_self=True).reshape(b, gh, gw, na)
-        lobj = lobj + bce_logits(head[..., 4], tobj).mean() * BALANCE[li]
+        bce = bce_logits(head[..., 4], tobj)
+        lobj = lobj + (bce.sum() / all_sum(bce.numel()) if spread
+                       else bce.mean()) * BALANCE[li]
 
         if nc > 1:
             cls_t = (tcls[:, :, None, None, None]
@@ -137,5 +148,6 @@ def yolo_loss(net, heads, targets, target_valid):
             lcls = lcls + (bce_logits(p[..., 5:], cls_t)
                            * vf[..., None]).sum() / (nv * nc)
 
-    total = (HYP["box"] * lbox + HYP["obj"] * lobj + HYP["cls"] * lcls) * b
+    total = (HYP["box"] * lbox + HYP["obj"] * lobj + HYP["cls"] * lcls) \
+        * all_sum(b)
     return total, {"box": lbox, "obj": lobj, "cls": lcls}

@@ -8,7 +8,8 @@ implements them:
     unmatched anchors are background;
   * loss (``ssd_loss``): smooth-L1 (beta 1) on the matched regressions plus
     cross-entropy with 3:1 hard-negative mining, normalised by
-    max(1, foreground anchors);
+    max(1, foreground anchors) (of the global batch: under several
+    processes the count is summed over the ranks first);
   * postprocess (``ssd_postprocess``): softmax over the class logits with
     the background column dropped, the box deltas decoded onto the default
     boxes and clipped to the image, then the exact batched NMS with every
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 
 from ..ops.metrics import box_iou_safe
 from ..ops.nms import nms_split_batch
+from ..parallel.mesh import all_sum
 
 MAX_CAND = 2048
 
@@ -98,7 +100,7 @@ def ssd_loss(net, cls_logits, reg, anchors, gt_boxes, gt_cls, gt_valid):
     keep_neg = hard_negatives(ce.detach(), fg)
     cls_loss = (ce * (fg | keep_neg)).sum(-1)  # (B,)
 
-    n = torch.clamp_min(num_fg.sum(), 1).to(cls_logits.dtype)
+    n = torch.clamp_min(all_sum(num_fg.sum()), 1).to(cls_logits.dtype)
     total = (box_loss.sum() + cls_loss.sum()) / n
     return total, {"bbox_regression": box_loss.sum() / n,
                    "classification": cls_loss.sum() / n}

@@ -514,3 +514,55 @@ def fuse_convbn(net: YoloV5) -> YoloV5:
             bn.running_mean.zero_()
             bn.running_var.fill_(1.0)
     return out
+
+
+@torch.no_grad()
+def calibrate_bn(net: YoloV5, images_fn, iters: int = 6) -> dict:
+    """Set every BatchNorm's running statistics to the network's actual
+    activation statistics, pooled over ``iters`` train-mode calibration
+    batches; the reference package's ``calibrate_bn``.
+
+    Each train-mode pass normalises with its own batch statistics from the
+    same starting statistics, so the passes are independent samples. The
+    momentum update of each pass is inverted (``batch = old + (new - old) /
+    momentum``) to recover the pass's raw moments (the variance unbiased,
+    as the update keeps it), and the passes are pooled in (E[x], E[x^2]):
+    every batch contributes, not just the last. ``iters == 1`` gives that
+    batch's statistics exactly, with no moment round trip. Calibrate at the
+    serving image size: spatial statistics depend on it.
+
+    :param images_fn: iteration -> (B, S, S, 3) f32 calibration batch on the
+        net's device.
+    :return: ``running_stats(net)`` (the live buffers, now calibrated); the
+        net is left in the mode it came in.
+    """
+    bns = [m for m in net.modules() if isinstance(m, nn.BatchNorm2d)]
+    old = [(bn.running_mean.clone(), bn.running_var.clone()) for bn in bns]
+    was_training = net.training
+    net.train()
+    moments = None
+    try:
+        for i in range(iters):
+            for bn, (m0, v0) in zip(bns, old):
+                bn.running_mean.copy_(m0)
+                bn.running_var.copy_(v0)
+            net.train_forward(images_fn(i))
+            batch = [(m0 + (bn.running_mean - m0) / bn.momentum,
+                      v0 + (bn.running_var - v0) / bn.momentum)
+                     for bn, (m0, v0) in zip(bns, old)]
+            if iters == 1:
+                moments = batch
+                break
+            mom = [(m, v + m ** 2) for m, v in batch]
+            moments = mom if moments is None else [
+                (a + m, b + v) for (a, b), (m, v) in zip(moments, mom)]
+        if iters > 1:
+            moments = [(a / iters, torch.clamp_min(b / iters - (a / iters) ** 2,
+                                                   0.0))
+                       for a, b in moments]
+        for bn, (m, v) in zip(bns, moments):
+            bn.running_mean.copy_(m)
+            bn.running_var.copy_(v)
+    finally:
+        net.train(was_training)
+    return running_stats(net)

@@ -1,9 +1,10 @@
 """Windowed metric meters: SmoothedValue and MetricLogger.
 
 A host copy of the reference package's ``parallel/meters.py`` (the
-torchvision references' meters). The port trains on one process: the
-cross-process reduction is a no-op there and raises under a multi-process
-``torch.distributed`` group, as ``eval_coco`` does.
+torchvision references' meters). Under several processes
+``synchronize_between_processes`` sums every meter's (count, total) over
+the ranks in float64 (``parallel/mesh.py all_sum``); in one process it is a
+no-op.
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ import time
 from collections import defaultdict, deque
 
 import numpy as np
+import torch
+
+from .mesh import all_sum, world_size
 
 
 class SmoothedValue:
@@ -31,13 +35,13 @@ class SmoothedValue:
         self.total += float(value) * n
 
     def synchronize_between_processes(self):
-        """Sum count/total across processes: a no-op for one process."""
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "multi-process training is not yet ported")
+        """Sum count/total across processes (no-op single-process)."""
+        if world_size() == 1:
+            return
+        agg = all_sum(torch.tensor([self.count, self.total],
+                                   dtype=torch.float64))
+        self.count = int(agg[0])
+        self.total = float(agg[1])
 
     @property
     def median(self):

@@ -17,11 +17,15 @@ bijection of 32-bit integers, so for one target the keys of distinct images
 differ and the draw is exactly E images other than the target, uniform
 without replacement up to the hash's quality. A key is a function of (seed,
 i, j) alone, computed in integer ops on the device, so rewards do not depend
-on the batch or on the order in which batches run.
+on the batch or on the order in which batches run, nor on how the images
+are split over several devices (``orie_rewards(mesh=)``: each batch is cut
+into contiguous blocks, one a device, against a copy of the pool on each,
+and gathered in order).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -29,6 +33,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.map_kernel import DetectionPool, build_pool, orie_map_pair
+from ..parallel.mesh import make_mesh
 
 _M32 = 0xFFFFFFFF
 _TARGET_KEY = torch.iinfo(torch.int64).max
@@ -95,21 +100,33 @@ def orie_batch(pool: DetectionPool, targets: torch.Tensor,
     return torch.where(torch.isnan(r), 0.0, r)
 
 
+def pool_to(pool: DetectionPool, device) -> DetectionPool:
+    """A copy of ``pool`` with its tensors on ``device``."""
+    return dataclasses.replace(pool, **{
+        f.name: getattr(pool, f.name).to(device)
+        for f in dataclasses.fields(pool)
+        if torch.is_tensor(getattr(pool, f.name))})
+
+
 def orie_rewards(weak_data, strong_data, labels, num_ensemble: int = 1000,
                  seed: int = 0, batch: int | None = None,
                  pool: DetectionPool | None = None, verbose: bool = False,
-                 device=None) -> np.ndarray:
+                 device=None, mesh=None) -> np.ndarray:
     """ORIE reward of every image (ORI when num_ensemble = 0).
 
     Inputs are the ``set_data`` triples. num_ensemble is clamped to [0, N -
     1] with the reference's messages; a NaN reward (no labelled image in the
     draw) becomes 0.
 
-    :param batch: images per device batch; None sizes it from the device's
-        free memory. The rewards do not depend on it.
+    :param batch: images per batch (over all devices); None sizes it from
+        the device's free memory, times the number of devices. The rewards
+        do not depend on it.
     :param pool: a pool already built from these triples (its device is
         used); else one is built on ``device`` (the CUDA device unless
         "cpu" is asked for).
+    :param mesh: None (the pool's device alone) or a list of devices: each
+        batch is cut into one contiguous block a device, each block scored
+        against the pool's copy there, the blocks gathered in order.
     :return: (N,) float32.
     """
     if pool is None:
@@ -124,14 +141,21 @@ def orie_rewards(weak_data, strong_data, labels, num_ensemble: int = 1000,
         print("Ensemble size is negative. Set to 0.")
     if batch is not None and batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
+    devices = [pool.device] if mesh is None \
+        else [torch.device(d) for d in mesh]
+    pools = {d: pool if d == pool.device else pool_to(pool, d)
+             for d in dict.fromkeys(devices)}
     if batch is None:
-        batch = default_batch(pool)
+        batch = default_batch(pool) * len(devices)
 
-    outs = [orie_batch(pool, torch.arange(s, min(s + batch, n),
-                                          device=pool.device),
-                       num_ensemble, seed) for s in range(0, n, batch)]
-    out = torch.cat(outs).cpu().numpy().astype(np.float32) if outs \
-        else np.zeros((0,), np.float32)
+    # every block is dispatched before any is read back
+    outs = [orie_batch(pools[d], block.to(d), num_ensemble, seed)
+            for s in range(0, n, batch)
+            for d, block in zip(devices, torch.tensor_split(
+                torch.arange(s, min(s + batch, n)), len(devices)))
+            if len(block)]
+    out = torch.cat([o.cpu() for o in outs]).numpy().astype(np.float32) \
+        if outs else np.zeros((0,), np.float32)
     if verbose:
         for i in range(n):
             print(f"ORIE for image {i}: {out[i]:.2f}.")
@@ -152,15 +176,24 @@ def dcsb_rewards(weak_data, strong_data, conf_thresh: float = 0.5
 def compute_rewards(weak_data, strong_data, labels, method: str = "orie",
                     num_ensemble: int = 1000, seed: int = 0,
                     verbose: bool = False, batch: int | None = None,
-                    device=None):
+                    device=None, mesh="auto"):
     """Rewards with the wall time the reference stores beside them: the
     clock runs from before the pool is built to after the rewards are on
-    the host (the device synchronised). Returns (reward, seconds)."""
+    the host (the device synchronised). Returns (reward, seconds).
+
+    :param mesh: "auto" deals the images over every visible CUDA card when
+        there is more than one (one card, or the CPU: one device); None
+        forces ``device`` alone; or an explicit list of devices
+        (``orie_rewards``)."""
     start = time.perf_counter()
     if method == "orie":
         dev = resolve_device(device)
+        if mesh == "auto":
+            mesh = make_mesh(dev)
+            mesh = mesh if len(mesh) > 1 else None
         reward = orie_rewards(weak_data, strong_data, labels, num_ensemble,
-                              seed, batch=batch, verbose=verbose, device=dev)
+                              seed, batch=batch, verbose=verbose, device=dev,
+                              mesh=mesh)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     else:

@@ -292,5 +292,14 @@ def test_evaluator_needs_cuda_unless_asked_and_one_process(monkeypatch):
     ev.synchronize_between_processes()  # one process: a no-op
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ev.synchronize_between_processes()
+    # two ranks: every rank's images are gathered, in rank order
+    import edgeml_tpu_torch.eval_coco as port_eval
+
+    box = np.array([[0.1, 0.1, 0.5, 0.5]], np.float32)
+    ev.update([(np.array([0]), box, np.array([0.9]))], [(np.array([0]), box)])
+    other = ([(np.array([1]), box, np.array([0.8]))], [(np.array([1]), box)])
+    monkeypatch.setattr(port_eval, "allgather_object",
+                        lambda obj: [obj, other])
+    ev.synchronize_between_processes()
+    assert [int(d[0][0]) for d in ev.dets] == [0, 1]
+    assert [int(g[0][0]) for g in ev.gts] == [0, 1]

@@ -44,7 +44,7 @@ def test_import_pulls_in_no_jax():
               "models.train", "models.engine", "parallel.meters",
               "data.fastaug", "data.yolo_aug", "data.transforms",
               "ops.color", "cli.train", "models.rcnn_loss", "models.quant",
-              "models.quant_ssd"):
+              "models.quant_ssd", "parallel.mesh", "utils.profiling"):
         assert "edgeml_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

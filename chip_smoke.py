@@ -57,7 +57,10 @@ what comes out:
     (--preset yolo --augment yolo --ema) to a checkpoint the detect CLI
     serves, and the training engine's ``evaluate`` on the card against the
     CPU through the suppressor and gather kernels, whose launches there
-    the kernel record carries as ``train_eval_launches``;
+    the kernel record carries as ``train_eval_launches``; then
+    ``evaluate`` of the trained YOLOv5n and SSDLite320 in f32 and int8
+    (``q8=``, the port's calibration on 16 images) side by side, its int8
+    launches added to ``int8_launches``;
   * training of the frozen-norm families: RetinaNet and Faster R-CNN
     (ResNet-50-FPN-v2, 21 classes, 640, batch 4), f32 and bf16 (one step
     against the CPU's at 256 from the same weights and sampling draws,
@@ -79,9 +82,13 @@ what comes out:
     checkpoint served by the detect CLI; the training engine's
     ``evaluate`` of SSDLite320 on each rank's images (the blocked
     suppressor and the gather), the evaluator merge bit for bit and the
-    meter sum; then a world-size-1 NCCL group through
-    ``initialize_distributed`` (the launches over both ranks are the
-    kernel record's ``multiprocess_launches``).
+    meter sum; RetinaNet and Faster R-CNN (21 classes, 640, global batch
+    4): one f32 and one bf16 step of each, the Faster R-CNN train CLI (8
+    images, two steps) with rank 0's checkpoint served, and its merged
+    ``evaluate`` (8 images; the sequential and blocked suppressors and the
+    gather), each against one process on the card; then a world-size-1
+    NCCL group through ``initialize_distributed`` (the launches over both
+    ranks are the kernel record's ``multiprocess_launches``).
 
 Before the serving paths, each kernel is held against its plain version
 bit for bit and timed (``kernel_ms`` looped, ``device_ms`` from a CUDA
@@ -791,12 +798,14 @@ def main(kernels_only=False):
         reward_phases(dev, tmp)
         records.append(estimator_phases(dev, tmp))
         hidden_phases(dev, tmp, img_dir)
-        train_launches = train_phases(dev, tmp, img_dir, shapes)
+        train_launches, eval_int8_launches = train_phases(dev, tmp, img_dir,
+                                                          shapes)
         frozen_launches, step_fields = frozen_train_phases(dev, tmp, img_dir,
                                                            shapes)
         mp_launches = multiprocess_phases(dev, tmp, img_dir, shapes)
         for rec in records:
-            rec["int8_launches"] = int8_launches.get(rec["name"], 0)
+            rec["int8_launches"] = int8_launches.get(rec["name"], 0) \
+                + eval_int8_launches.get(rec["name"], 0)
             rec["multiprocess_launches"] = mp_launches.get(rec["name"], 0)
             rec["train_eval_launches"] = train_launches.get(rec["name"], 0) \
                 + frozen_launches.get(rec["name"], 0)
@@ -3967,7 +3976,8 @@ def train_family_phase(tag, make_net, x, tg, valid, dev):
     """[train_yolo] / [train_ssd]: one step card against CPU, then per dtype
     (f32, bf16) TRAIN_STEPS SGD steps with the EMA on one fixed batch: the
     loss must fall; each step's stage times (forward, loss, backward,
-    optimiser, EMA) from CUDA events, img/s, peak GiB."""
+    optimiser, EMA) from CUDA events, img/s, peak GiB. Returns the net the
+    f32 steps trained."""
     import torch
 
     from edgeml_tpu_torch.models.engine import make_family_train_step
@@ -4022,8 +4032,11 @@ def train_family_phase(tag, make_net, x, tg, valid, dev):
         if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
             fail(f"train_{tag} {label}: the loss did not fall on a fixed "
                  f"batch ({losses[0]:.4f} -> {losses[-1]:.4f})")
+        if dtype is None:
+            trained = net
         del net, ema, step, grads, pred, total
         torch.cuda.empty_cache()
+    return trained
 
 
 def write_train_labels(img_dir, lab_dir):
@@ -4295,7 +4308,7 @@ def train_phases(dev, tmp, img_dir, shapes):
     walls["train_yolo"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     x, tg, valid = train_inputs(img_dir, "ssd")
-    train_family_phase(
+    ssd_net = train_family_phase(
         "ssd", lambda: make_detector(
             "ssd", 20, TRAIN_SIZE["ssd"], torch.Generator().manual_seed(22)),
         x, tg, valid, dev)
@@ -4306,8 +4319,74 @@ def train_phases(dev, tmp, img_dir, shapes):
     t0 = time.perf_counter()
     launches = train_eval_phase(dev, img_dir, res["ema"].module)
     walls["train_eval"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    int8_launches = eval_int8_phase(
+        dev, img_dir, {"yolo": res["ema"].module, "ssd": ssd_net})
+    walls["eval_int8"] = time.perf_counter() - t0
     line("train_wall", total_s=f"{sum(walls.values()):.1f}",
          **{f"{k}_s": f"{v:.1f}" for k, v in walls.items()})
+    return launches, int8_launches
+
+
+def eval_int8_phase(dev, img_dir, nets):
+    """[eval_int8]: the training engine's ``evaluate`` of the train phase's
+    YOLOv5n (the train CLI's EMA) and SSDLite320 (its f32 steps) over
+    EVAL_IMAGES images in f32 and in int8 (``q8=``: the port's calibration
+    on the first 16 images, as run_detection calibrates), GT from each
+    net's own f32 detections: map50 side by side and each run's kernel
+    launches. Returns {kernel record name: the int8 runs' launches}."""
+    import torch
+
+    from edgeml_tpu_torch.data.loader import decode_image
+    from edgeml_tpu_torch.models.common import letterbox_batch
+    from edgeml_tpu_torch.models.engine import evaluate
+    from edgeml_tpu_torch.models.infer import square_batch
+    from edgeml_tpu_torch.models.quant import prepare_int8
+    from edgeml_tpu_torch.models.quant_ssd import prepare_int8_ssd
+
+    images = [decode_image(os.path.join(img_dir, n))
+              for n in sorted(os.listdir(img_dir))[:EVAL_IMAGES]]
+    launches = {}
+    for family, net in nets.items():
+        net = net.to(dev).eval()
+        if family == "yolo":
+            xc = torch.from_numpy(letterbox_batch(images[:16],
+                                                  net.img_size)[0]).to(dev)
+            tree = prepare_int8(net, lambda i: xc, iters=1).tree
+        else:
+            xc = torch.from_numpy(square_batch(images[:16],
+                                               net.image_size)).to(dev)
+            tree = prepare_int8_ssd(net, lambda i: xc, iters=1).tree
+        del xc
+        gts = own_gt(net, images, family, conf=SERVE_CONF)
+        ap, n, secs = {}, {}, {}
+        for label, q8 in (("f32", None), ("int8", tree)):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                ap[label] = evaluate(net, images, gts, batch_size=16,
+                                     conf_thres=SERVE_CONF, q8=q8)
+            secs[label] = time.perf_counter() - t0
+            n[label] = counts()
+        line("eval_int8", family=family, images=EVAL_IMAGES,
+             conf=SERVE_CONF, f32_map50=f"{ap['f32']['map50']:.6f}",
+             int8_map50=f"{ap['int8']['map50']:.6f}",
+             f32_map=f"{ap['f32']['map']:.6f}",
+             int8_map=f"{ap['int8']['map']:.6f}",
+             f32_s=f"{secs['f32']:.2f}", int8_s=f"{secs['int8']:.2f}",
+             f32_launches=repr(n["f32"]), int8_launches=repr(n["int8"]),
+             launches_are="(nms_fused, nms_blocked, nms_seq, gather_rows)")
+        suppressor = n["int8"][0] if family == "yolo" else n["int8"][1]
+        if not (all(0 <= ap[w][k] <= 1 for w in ap
+                    for k in ("map", "map50", "map75"))
+                and suppressor > 0 and n["int8"][3] > 0):
+            fail(f"eval_int8 {family}: APs out of range, or the int8 "
+                 f"evaluate did not launch the suppressor and gather "
+                 f"kernels ({n['int8']})")
+        for name, k in (("nms_fused_greedy_keep", 0),
+                        ("nms_blocked_greedy_keep", 1), ("gather_rows", 3)):
+            launches[name] = launches.get(name, 0) + n["int8"][k]
     return launches
 
 
@@ -4739,6 +4818,16 @@ MP_EVAL_IMAGES = 16  # the SSDLite evaluate merge: 8 a rank
 MP_EVAL_BATCH = 8
 MP_MERGE_IMAGES = 12  # the evaluator merge on fixed detections
 MP_TIMEOUT = 600
+# the frozen-norm families under two ranks: one step a dtype at FROZEN_SIZE
+# and a global FROZEN_BATCH (2 a rank) from frozen_net's weights, Faster
+# R-CNN's draws from the default generator seeded with MP_FROZEN_SEED; the
+# Faster R-CNN train CLI over MP_FROZEN_CLI_IMAGES at a global
+# FROZEN_BATCH (two steps); its merged evaluate over MP_FROZEN_EVAL_IMAGES
+# (4 a rank, one batch each)
+MP_FROZEN_SEED = 16
+MP_FROZEN_CLI_IMAGES = 8
+MP_FROZEN_EVAL_IMAGES = 8
+MP_FROZEN_EVAL_BATCH = 4
 # two ranks against one process on the same card: the train CLI's per-step
 # losses and the SSDLite step's loss within TRAIN_LOSS_TOL, the updates
 # (checkpoint or step, the whole model at once) within the family's
@@ -4878,8 +4967,92 @@ def mp_rank(job_path):
     v.update(float(me + 1), n=me + 1)
     v.synchronize_between_processes()
     report["meter"] = [v.count, v.total]
+    mp_rank_frozen(job, report, dev)
     with open(os.path.join(job["root"], f"rank{me}.json"), "w") as f:
         json.dump(report, f)
+
+
+def frozen_step_once(family, dtype, x, tg, valid, dev):
+    """One SGD step of ``family`` at FROZEN_SIZE from ``frozen_net``'s
+    weights on ``dev`` on the rows given (a rank's, or the whole batch),
+    Faster R-CNN's draws from the default generator seeded with
+    MP_FROZEN_SEED. Returns (report: the loss and its parts, the step's
+    seconds and its sequential suppressor and gather launches; the trained
+    tensors' names; the trained tensors before and after, on the host)."""
+    import torch
+
+    from edgeml_tpu_torch.models.engine import make_family_train_step
+    from edgeml_tpu_torch.models.train import TrainConfig
+
+    lr = FROZEN_LR[family]
+    net = frozen_net(family, FROZEN_SIZE).to(dev)
+    _, step = make_family_train_step(net, TrainConfig(lr=lr), dtype=dtype,
+                                     seed=MP_FROZEN_SEED)
+    before = [p.detach().cpu().clone() for p in step.opt.params]
+    args = [torch.from_numpy(a).to(dev) for a in (x, tg, valid)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, parts = step(*args, lr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, _, seq, gathers = counts()
+    report = {"total": float(loss), **{k: float(v) for k, v in parts.items()},
+              "s": wall, "nms_seq": seq, "gather_rows": gathers}
+    after = [p.detach().cpu() for p in step.opt.params]
+    names = list(step.opt.names)
+    del net, step, args, loss, parts
+    torch.cuda.empty_cache()
+    return report, names, before, after
+
+
+def mp_rank_frozen(job, report, dev):
+    """The frozen-norm families' half of a rank of [mp_*]: one RetinaNet
+    and one Faster R-CNN step per dtype on the rank's rows of the global
+    batch (rank 0 saves the trained tensors), the Faster R-CNN train CLI
+    (this rank's own save directory: rank 0 alone writes), and the merged
+    Faster R-CNN ``evaluate`` on the rank's images, with the kernels'
+    launches."""
+    import torch
+
+    from edgeml_tpu_torch.cli import train as train_cli
+    from edgeml_tpu_torch.models.engine import evaluate
+    from edgeml_tpu_torch.models.faster_rcnn import FasterRCNN
+    from edgeml_tpu_torch.parallel import mesh
+
+    me = mesh.rank()
+    rows = [mesh.shard_along(a) for a in frozen_inputs(
+        job["img_dir"], FROZEN_SIZE, FROZEN_BATCH)]
+    for family in ("retinanet", "faster_rcnn"):
+        for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            tag = f"{FROZEN_SHORT[family]}_{label}"
+            report[tag], _, _, after = frozen_step_once(family, dtype, *rows,
+                                                        dev)
+            if mesh.is_primary():
+                torch.save(after, os.path.join(job["root"],
+                                               f"step_{tag}.pt"))
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = train_cli.main(train_cli.getargs(
+            job["frcnn_train_args"]
+            + [os.path.join(job["root"], f"frcnn_ckpt{me}")]))
+    report["frcnn_cli_losses"] = list(res["loggers"][0].meters["loss"].deque)
+    report["frcnn_cli_launches"] = counts()
+    del res
+    net = FasterRCNN(num_classes=91, image_size=640)
+    net.load_state_dict(torch.load(job["frcnn_eval"]))
+    net.to(dev)
+    with open(job["frcnn_eval_data"], "rb") as f:
+        images, gts = pickle.load(f)
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report["frcnn_eval"] = {k: float(v) for k, v in evaluate(
+            net, mesh.shard_along(images), mesh.shard_along(gts),
+            batch_size=MP_FROZEN_EVAL_BATCH, conf_thres=0.001).items()
+            if k != "per_iou"}
+    report["frcnn_eval_launches"] = counts()
+    del net
+    torch.cuda.empty_cache()
 
 
 def mp_merge_images(rank=None):
@@ -5006,13 +5179,40 @@ def multiprocess_phases(dev, tmp, img_dir, shapes):
                   "--dataset", "coco", "-b", str(MP_TRAIN_BATCH),
                   "--epochs", "1", "--preset", "yolo", "--augment", "yolo",
                   "--ema", "--img-size", str(TRAIN_SIZE["yolo"])]
+    # the frozen-norm families: the Faster R-CNN train CLI's images and
+    # labels, and the merged evaluate's net, images and GT
+    frcnn_dir, frcnn_lab = (os.path.join(root, f"frcnn_{d}")
+                            for d in ("images", "labels"))
+    os.makedirs(frcnn_dir)
+    os.makedirs(frcnn_lab)
+    for n in names[:MP_FROZEN_CLI_IMAGES]:
+        shutil.copy(os.path.join(img_dir, n), frcnn_dir)
+        shutil.copy(os.path.join(lab_dir, n.rsplit(".", 1)[0] + ".txt"),
+                    frcnn_lab)
+    frcnn_args = [frcnn_dir, "--label-dir", frcnn_lab, "--model",
+                  "faster_rcnn", "--dataset", "voc", "-b", str(FROZEN_BATCH),
+                  "--epochs", "1", "--img-size", str(FROZEN_SIZE), "--lr",
+                  str(FROZEN_LR["faster_rcnn"])]
+    frcnn_eval = seeded_faster_rcnn(4, torch.from_numpy(
+        square_batch(calib, 640)).to(dev), dev)
+    frcnn_images = [decode_image(os.path.join(img_dir, n))
+                    for n in names[:MP_FROZEN_EVAL_IMAGES]]
+    frcnn_gts = own_gt(frcnn_eval, frcnn_images, "frcnn")
+    torch.save(frcnn_eval.state_dict(), os.path.join(root, "frcnn_eval.pt"))
+    with open(os.path.join(root, "frcnn_eval.pkl"), "wb") as f:
+        pickle.dump((frcnn_images, frcnn_gts), f)
+    torch.cuda.empty_cache()
     job = os.path.join(root, "job.json")
     with open(job, "w") as f:
         json.dump({"root": root, "img_dir": img_dir, "ckpt": ckpt,
                    "n_images": len(names), "train_args": train_args,
                    "ssd_train": os.path.join(root, "ssd_train.pt"),
                    "ssd_eval": os.path.join(root, "ssd_eval.pt"),
-                   "eval_data": os.path.join(root, "eval.pkl")}, f)
+                   "eval_data": os.path.join(root, "eval.pkl"),
+                   "frcnn_train_args": frcnn_args,
+                   "frcnn_eval": os.path.join(root, "frcnn_eval.pt"),
+                   "frcnn_eval_data": os.path.join(root, "frcnn_eval.pkl")},
+                  f)
     # the two ranks, and the NCCL group beside them
     t0 = time.perf_counter()
     ranks = mp_spawn("mp_rank", job, MP_RANKS)
@@ -5176,7 +5376,161 @@ def multiprocess_phases(dev, tmp, img_dir, shapes):
                        for r in reports) or \
             any(m != want_meter for m in meters):
         fail("mp_merge: the merged evaluator or meters disagree")
+
+    # (v) the frozen-norm families: steps, the train CLI, evaluate
+    for name, n in mp_frozen_phase(dev, root, reports, shapes, frcnn_dir,
+                                   frcnn_args, frcnn_eval, frcnn_images,
+                                   frcnn_gts, img_dir).items():
+        launches[name] = launches.get(name, 0) + n
     line("mp_wall", s=f"{time.perf_counter() - t_start:.1f}")
+    return launches
+
+
+def mp_frozen_phase(dev, root, reports, shapes, frcnn_dir, frcnn_args,
+                    eval_net, images, gts, img_dir):
+    """[mp_retina_step], [mp_frcnn_step], [mp_train_cli_frcnn],
+    [mp_eval_frcnn]: the two ranks' RetinaNet and Faster R-CNN work against
+    one process's on the card. Steps: every loss part and the update (the
+    whole model at once) held to FROZEN_LIMITS, with each rank's kernel
+    launches. The train CLI: per-step losses and the checkpoint's update
+    against one process's, rank 0 alone writing, the detect CLI serving its
+    checkpoint. evaluate: the merged APs within EVAL_AP_TOL of one
+    process's over the same batches. Returns {kernel record name: launches
+    over both ranks}."""
+    import torch
+
+    from edgeml_tpu_torch.cli import detect as detect_cli
+    from edgeml_tpu_torch.cli import train as train_cli
+    from edgeml_tpu_torch.models.engine import evaluate, make_detector
+
+    launches = {"nms_seq_suppress": 0, "nms_blocked_greedy_keep": 0,
+                "gather_rows": 0}
+    whole = frozen_inputs(img_dir, FROZEN_SIZE, FROZEN_BATCH)
+    for family in ("retinanet", "faster_rcnn"):
+        short = FROZEN_SHORT[family]
+        for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            tag = f"{short}_{label}"
+            one, names, before, after = frozen_step_once(family, dtype,
+                                                         *whole, dev)
+            two = torch.load(os.path.join(root, f"step_{tag}.pt"))
+            ranks = [r[tag] for r in reports]
+            keys = [k for k in one if k not in ("s", "nms_seq",
+                                                "gather_rows")]
+            l_err = max(abs(r[k] - one[k]) / abs(one[k]) for r in ranks
+                        for k in keys)
+            sq_d = sq_u = w_err = 0.0
+            worst = ""
+            for name, b, a, t in zip(names, before, after, two):
+                d, u = (t - a).double(), (a - b).double()
+                sq_d += float((d * d).sum())
+                sq_u += float((u * u).sum())
+                if float(d.abs().max()) > w_err:
+                    w_err, worst = float(d.abs().max()), name
+            u_err = math.sqrt(sq_d / sq_u)
+            lim = FROZEN_LIMITS[(family, label)]
+            line(f"mp_{short}_step", dtype=label, size=FROZEN_SIZE,
+                 global_batch=FROZEN_BATCH,
+                 rank_batch=FROZEN_BATCH // MP_RANKS,
+                 loss=f"{one['total']:.6f}",
+                 rank_losses=repr([r["total"] for r in ranks]),
+                 loss_rel_err=f"{l_err:.3e}", update_norm_err=f"{u_err:.3e}",
+                 worst_param=worst, worst_param_err=f"{w_err:.3e}",
+                 nms_seq=repr([r["nms_seq"] for r in ranks]),
+                 gather_rows=repr([r["gather_rows"] for r in ranks]),
+                 one_process_launches=(one["nms_seq"], one["gather_rows"]),
+                 rank_s=repr([round(r["s"], 3) for r in ranks]),
+                 one_process_s=f"{one['s']:.3f}",
+                 tol=f"loss {lim['loss']:g}, update norm {lim['update']:g}",
+                 smi=repr(SMI))
+            if l_err > lim["loss"] or u_err > lim["update"] or \
+                    ranks[0]["total"] != ranks[1]["total"]:
+                fail(f"mp_{short}_step {label}: the two ranks' step "
+                     f"disagrees with one process's")
+            if family == "faster_rcnn":
+                if any(r["nms_seq"] == 0 or r["gather_rows"] == 0
+                       for r in ranks):
+                    fail(f"mp_{short}_step {label}: a rank's step launched "
+                         f"no sequential suppressor or no gather")
+                launches["nms_seq_suppress"] += sum(r["nms_seq"]
+                                                    for r in ranks)
+                launches["gather_rows"] += sum(r["gather_rows"]
+                                               for r in ranks)
+
+    # the Faster R-CNN train CLI, two ranks against one process
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = train_cli.main(train_cli.getargs(
+            frcnn_args + [os.path.join(root, "frcnn_ckpt_one")]))
+    one_s = time.perf_counter() - t0
+    want = list(res["loggers"][0].meters["loss"].deque)
+    del res
+    l_err = max(abs(a - b) / abs(b) for r in reports
+                for a, b in zip(r["frcnn_cli_losses"], want))
+    written = sorted(os.listdir(os.path.join(root, "frcnn_ckpt0")))
+    ck = os.path.join(root, "frcnn_ckpt0", "checkpoint.pth")
+    with open(ck, "rb") as f:
+        two = pickle.load(f)["model"]["params"]
+    with open(os.path.join(root, "frcnn_ckpt_one", "checkpoint.pth"),
+              "rb") as f:
+        one = pickle.load(f)["model"]["params"]
+    start = make_detector("faster_rcnn", 20, FROZEN_SIZE,
+                          generator=torch.Generator().manual_seed(0))
+    u_err, _ = checkpoint_errors({"params": two}, {"params": one},
+                                 {"params": start.to_jax_params()[0]})
+    out = os.path.join(root, "frcnn_served")
+    with contextlib.redirect_stdout(io.StringIO()):
+        detect_cli.main(detect_cli.getargs(
+            [frcnn_dir, out, "--model", "faster_rcnn", "--dataset", "voc",
+             "--model-path", ck, "--batch-size", "8", "--conf-thres",
+             str(FROZEN_SERVE_CONF)]))
+    served = check_files(out, shapes[:MP_FROZEN_CLI_IMAGES], 20,
+                         FROZEN_SERVE_CONF)
+    cli_n = [r["frcnn_cli_launches"] for r in reports]
+    lim = FROZEN_LIMITS[("faster_rcnn", "f32")]
+    line("mp_train_cli_frcnn", images=MP_FROZEN_CLI_IMAGES,
+         global_batch=FROZEN_BATCH, steps=len(want),
+         losses=repr([round(v, 6) for v in want]),
+         loss_rel_err=f"{l_err:.3e}", update_norm_err=f"{u_err:.3e}",
+         tol=f"loss {lim['loss']:g}, update {lim['update']:g}",
+         rank0_files=repr(written), served_rows=served,
+         nms_seq=repr([n[2] for n in cli_n]),
+         gather_rows=repr([n[3] for n in cli_n]),
+         one_process_s=f"{one_s:.1f}")
+    if len(want) != MP_FROZEN_CLI_IMAGES // FROZEN_BATCH or \
+            l_err > lim["loss"] or u_err > lim["update"]:
+        fail("mp_train_cli_frcnn: the two-rank train CLI disagrees with one "
+             "process")
+    if written != ["checkpoint.pth", "model_0.pth"] or \
+            os.path.exists(os.path.join(root, "frcnn_ckpt1")) or \
+            served == 0 or any(n[2] == 0 or n[3] == 0 for n in cli_n):
+        fail("mp_train_cli_frcnn: rank 0 alone must write a checkpoint the "
+             "detect CLI serves, through the kernels")
+    launches["nms_seq_suppress"] += sum(n[2] for n in cli_n)
+    launches["gather_rows"] += sum(n[3] for n in cli_n)
+
+    # the merged Faster R-CNN evaluate against one process's
+    with contextlib.redirect_stdout(io.StringIO()):
+        one_eval = evaluate(eval_net, images, gts,
+                            batch_size=MP_FROZEN_EVAL_BATCH, conf_thres=0.001)
+    ap_err = max(abs(r["frcnn_eval"][k] - one_eval[k]) for r in reports
+                 for k in ("map", "map50", "map75"))
+    ev_n = [r["frcnn_eval_launches"] for r in reports]
+    line("mp_eval_frcnn", images=MP_FROZEN_EVAL_IMAGES,
+         rank_images=MP_FROZEN_EVAL_IMAGES // MP_RANKS,
+         map=f"{one_eval['map']:.6f}", map50=f"{one_eval['map50']:.6f}",
+         max_ap_err=f"{ap_err:.3e}", tol=EVAL_AP_TOL,
+         nms_seq=repr([n[2] for n in ev_n]),
+         nms_blocked=repr([n[1] for n in ev_n]),
+         gather_rows=repr([n[3] for n in ev_n]))
+    if ap_err > EVAL_AP_TOL or not 0 < one_eval["map50"] <= 1 or \
+            any(n[1] == 0 or n[2] == 0 or n[3] == 0 for n in ev_n):
+        fail("mp_eval_frcnn: the merged evaluate disagrees with one process "
+             "or did not launch the kernels")
+    launches["nms_seq_suppress"] += sum(n[2] for n in ev_n)
+    launches["nms_blocked_greedy_keep"] += sum(n[1] for n in ev_n)
+    launches["gather_rows"] += sum(n[3] for n in ev_n)
+    del eval_net
+    torch.cuda.empty_cache()
     return launches
 
 

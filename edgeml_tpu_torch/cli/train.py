@@ -11,12 +11,12 @@ CUDA device it raises unless ``--device cpu`` is given). Families:
 R-CNN-ResNet50-FPN-v2, its RoI sampling drawn from a generator seeded with
 ``--seed``). Trains on one device, or under several processes
 (``torchrun --nproc-per-node N -m edgeml_tpu_torch.cli.train ...``) on
-one device a rank for YOLOv5 and SSDLite: every rank draws the same
-epoch permutation, takes its contiguous rows of each global batch
-(``-b`` is global and must split over the ranks), and the step equals the
-one-process step on the whole batch (``models/engine.py TrainStep``); rank
-0 alone writes the checkpoints. RetinaNet and Faster R-CNN train in one
-process only.
+one device a rank, every family: every rank draws the same epoch
+permutation, takes its contiguous rows of each global batch (``-b`` is
+global and must split over the ranks), and the step equals the
+one-process step on the whole batch (``models/engine.py TrainStep``;
+Faster R-CNN's ranks draw the whole batch's sampling ranks from
+``--seed`` and keep their rows); rank 0 alone writes the checkpoints.
 
 Data: images plus YOLO-format label files (``--label-dir``), or a raw
 VOCdevkit tree (``--voc-root``, 07+12 trainval). Images stream from disk

@@ -21,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from ..parallel.mesh import all_sum, world_size
+from ..parallel.mesh import all_sum, shard_along
 from ..parallel.meters import MetricLogger
 from .faster_rcnn import PRE_NMS, FasterRCNN
 from .loss import yolo_loss
@@ -84,24 +84,28 @@ class TrainStep:
     Faster R-CNN: ``forward`` is the trunk and the RPN head
     (``rcnn_forward``); ``loss`` the proposals, the two samplings, the
     RoIAlign and box head and the four losses (``faster_rcnn_loss``),
-    drawing its sampling ranks with ``draw_fn(b, n_rpn, n_roi, device)``:
-    by default from a ``torch.Generator`` on the net's device seeded with
-    ``seed``; a caller may replace it to inject draws.
+    drawing its sampling ranks with ``draw_fn(b, n_rpn, n_roi, device)``
+    for the ``b`` images of the global batch: by default from one
+    ``torch.Generator`` on the net's device seeded with ``seed``; a caller
+    may replace it to inject draws.
 
-    Under several processes (YOLOv5 and SSDLite) each rank passes its rows
-    of one global batch and the step equals the one-process step on the
-    whole batch: BatchNorm takes the global batch's moments
-    (``common.CrossRankBatchNorm``), the losses divide by global counts,
-    the gradients are summed over the ranks (each rank's loss is its share
-    of the global one, so the sum is the whole-batch gradient), and the
-    loss and parts returned are the global ones, equal on every rank."""
+    Under several processes, every family: each rank passes its rows of
+    one global batch and the step equals the one-process step on the whole
+    batch. YOLOv5's and SSDLite's BatchNorms take the global batch's
+    moments (``common.CrossRankBatchNorm``); RetinaNet's and Faster
+    R-CNN's norms are frozen and take no batch statistics, so they need
+    none. The losses divide by global counts (YOLOv5, SSDLite) or by the
+    global batch size (RetinaNet, Faster R-CNN, whose other normalisers are
+    per image). Faster R-CNN draws for the whole global batch, the same
+    stream on every rank as in one process, and keeps its rows of the draw
+    (``shard_along``): its images' block. Every rank must therefore pad its
+    targets to the same width (the train CLI's ``--max-targets``), which
+    fixes the draws' shape. The gradients are summed over the ranks (each
+    rank's loss is its share of the global one, so the sum is the
+    whole-batch gradient), and the loss and parts returned are the global
+    ones, equal on every rank."""
 
     def __init__(self, net, opt, dtype=None, seed: int = 0):
-        if world_size() > 1 and isinstance(net, (RetinaNet, FasterRCNN)):
-            raise NotImplementedError(
-                f"{type(net).__name__} training under several processes is "
-                "not yet ported (ROADMAP Queue 1: multi-process training of "
-                "RetinaNet and Faster R-CNN); YOLOv5 and SSDLite are")
         self.net, self.opt, self.dtype = net, opt, dtype
         if isinstance(net, YoloV5):
             self.loss = self._yolo_loss
@@ -153,7 +157,9 @@ class TrainStep:
         n_rpn = sum(o.shape[1] for o in objs)
         n_roi = min(net.rpn_post_nms, sum(min(PRE_NMS, o.shape[1])
                                           for o in objs)) + boxes.shape[1]
-        draws = self.draw_fn(boxes.shape[0], n_rpn, n_roi, boxes.device)
+        draws = self.draw_fn(all_sum(boxes.shape[0]), n_rpn, n_roi,
+                             boxes.device)
+        draws = type(draws)(*(shard_along(d) for d in draws))
         return faster_rcnn_loss(net, feats, objs, regs, boxes, cls, valid,
                                 draws, self.dtype)
 
@@ -177,7 +183,8 @@ def make_family_train_step(net, cfg: TrainConfig, dtype=None, seed: int = 0):
 
 @torch.no_grad()
 def evaluate(net, images, gt_rows, batch_size: int = 8,
-             conf_thres: float = 0.05, iou_thres: float = 0.5, dtype=None):
+             conf_thres: float = 0.05, iou_thres: float = 0.5, dtype=None,
+             q8=None):
     """Detect over in-memory images and score against GT rows (normalised
     [cls, x, y, w, h] per image): the evaluator's AP summary dict.
 
@@ -187,12 +194,23 @@ def evaluate(net, images, gt_rows, batch_size: int = 8,
     ``detect`` tails); the last batch is padded with its last image. The
     net is left in the mode it came in. Under several processes each rank
     passes its own images and the summary covers every rank's, merged in
-    rank order (``DetectionEvaluator.synchronize_between_processes``)."""
+    rank order (``DetectionEvaluator.synchronize_between_processes``).
+
+    dtype / q8 are the serving knobs: bfloat16 compute, or an int8
+    post-training-quantized trunk (``quant.Q8Yolo.tree`` for YOLOv5,
+    ``quant_ssd.Q8SSD.tree`` for SSDLite, moved to the net's device), so
+    that int8's accuracy change reads as a dataset mAP."""
     from ..eval_coco import DetectionEvaluator
     from .common import letterbox_batch
     from .infer import _detect_generic, detect_batch, square_batch
+    from .quant import tree_to
 
+    if q8 is not None and not isinstance(net, (YoloV5, SSDLite)):
+        raise ValueError(
+            "int8 (q8) evaluation is implemented for YOLO and SSDLite only")
     dev = next(net.parameters()).device
+    if q8 is not None:
+        q8 = tree_to(q8, dev)
     was_training = net.training
     net.eval()
     ev = DetectionEvaluator(device=dev)
@@ -208,12 +226,12 @@ def evaluate(net, images, gt_rows, batch_size: int = 8,
                     net, torch.from_numpy(lb).to(dev),
                     torch.from_numpy(meta).to(dev),
                     torch.from_numpy(hw).to(dev), conf_thres, iou_thres,
-                    dtype=dtype)
+                    dtype=dtype, q8=q8)
             else:
                 dets, valid = _detect_generic(
                     net, torch.from_numpy(square_batch(
                         chunk_p, net.image_size)).to(dev),
-                    conf_thres, iou_thres, dtype=dtype)
+                    conf_thres, iou_thres, dtype=dtype, q8=q8)
             dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
             det_batch, gt_batch = [], []
             for bi in range(len(chunk)):

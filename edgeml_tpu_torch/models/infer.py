@@ -254,9 +254,10 @@ def run_detection(
 
     local_bs = batch_size // world
     # this rank's rows of each global batch (the tail batch's may be short
-    # or empty)
+    # or empty); every row without data_parallel, even inside a group
     order = [i for s in range(0, len(names), batch_size)
-             for i in shard_along(list(range(s, s + batch_size)))
+             for i in (shard_along(list(range(s, s + batch_size)))
+                       if world > 1 else range(s, s + batch_size))
              if i < len(names)]
 
     def make_batch(items):

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.metrics import box_iou_safe
+from ..parallel.mesh import all_sum
 from .faster_rcnn import BOX_WEIGHTS, RPN_WEIGHTS, encode
 from .retinanet import retina_match
 
@@ -198,7 +199,14 @@ def rcnn_forward(net, images, dtype=None):
 def faster_rcnn_loss(net, feats, objs, regs, gt_boxes, gt_cls, gt_valid,
                      draws: Draws, dtype=None):
     """The two-stage training loss of a batch, from ``rcnn_forward``'s
-    outputs: each part the mean over the images.
+    outputs: each part the mean over the images of the global batch.
+
+    The RPN's and the RoI head's losses divide by their own image's sampled
+    weights (``rpn_loss``, ``roi_head_loss``), as the reference's take one
+    image each; only the batch size spans the ranks. Under several
+    processes each rank passes its rows (and its rows of the draws) and
+    returns its share, its per-image losses over the global image count
+    (``all_sum(b)``), so the ranks' shares add up to the whole batch's.
 
     dtype: the compute dtype of the trunk (``rcnn_forward``'s) and the box
     head; every decision stage (proposals, matching, sampling, box encode,
@@ -206,7 +214,7 @@ def faster_rcnn_loss(net, feats, objs, regs, gt_boxes, gt_cls, gt_valid,
 
     :return: (total, {"rpn_obj", "rpn_reg", "cls", "reg"}).
     """
-    b = gt_boxes.shape[0]
+    b = all_sum(gt_boxes.shape[0])
     _, anchors = net.anchors(gt_boxes.device)
     obj_l, rpn_reg_l = rpn_loss(torch.cat(objs, 1), torch.cat(regs, 1),
                                 anchors, gt_boxes, gt_valid, draws.rpn_pos,

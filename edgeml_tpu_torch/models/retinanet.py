@@ -40,6 +40,7 @@ import torch.nn as nn
 
 from ..ops.metrics import box_iou_safe
 from ..ops.nms import nms_split_batch, topk1d
+from ..parallel.mesh import all_sum, world_size
 from .common import (
     DtypeConv2d, DtypeGroupNorm, host_array, jax_conv, seeded_init_,
 )
@@ -291,7 +292,15 @@ def retina_match(anchors, gt_boxes, gt_valid, hi: float = 0.5,
 def retina_loss(net, cls_logits, reg, anchors, gt_boxes, gt_cls, gt_valid):
     """Sigmoid focal classification over the anchors not ignored plus
     smooth-L1 regression on the matched, each over the image's foreground
-    count, then averaged over the images, as the reference computes them.
+    count, then averaged over the images of the global batch, as the
+    reference computes them.
+
+    Under several processes each rank passes its rows of the global batch
+    and returns its share of the global mean (its per-image sums over the
+    global image count, ``all_sum(b)``): the ranks' shares add up to the
+    whole batch's loss. The foreground count stays per image, so nothing
+    else spans the ranks. One process keeps ``.mean()``, as ``loss.py``
+    keeps YOLOv5's, so its value is what it was bit for bit on any device.
 
     :param cls_logits: (B, A, C) f32; reg (B, A, 4) f32; anchors (A, 4).
     :param gt_boxes: (B, M, 4) xyxy pixels; gt_cls (B, M) label ids in the
@@ -323,7 +332,11 @@ def retina_loss(net, cls_logits, reg, anchors, gt_boxes, gt_cls, gt_valid):
     ad = torch.abs(d)
     sl1 = torch.where(ad < 1.0 / 9.0, 4.5 * d * d, ad - 1.0 / 18.0)
     box_l = torch.sum(sl1.sum(-1) * fg, dim=1) / num_fg
-    cls_mean, box_mean = cls_l.mean(), box_l.mean()
+    if world_size() > 1:
+        b = all_sum(cls_l.shape[0])
+        cls_mean, box_mean = cls_l.sum() / b, box_l.sum() / b
+    else:
+        cls_mean, box_mean = cls_l.mean(), box_l.mean()
     return cls_mean + box_mean, {"classification": cls_mean,
                                  "bbox_regression": box_mean}
 

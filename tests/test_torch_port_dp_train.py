@@ -1,14 +1,15 @@
 """Training under two processes, YOLOv5 and SSDLite320: the two-rank step on
 the ranks' rows of a global batch against the one-process step on the
-whole batch, the two-rank train CLI against the one-process CLI, and the
-frozen-norm families' refusal, on the CPU over gloo.
+whole batch and the two-rank train CLI against the one-process CLI, on
+the CPU over gloo (RetinaNet and Faster R-CNN:
+``test_torch_port_dp_train_frozen.py``).
 
 One spawn of two ranks (``torch_mp_worker.py train``) runs, per family,
 SGD steps of ``TrainStep`` (YOLOv5n two, SSDLite one) from the same seeded
 net on 2 of the 4 rows of a 64-px batch, then the train CLI (``--augment yolo --ema``, global
 batch 4 over 8 images: two steps) with a save directory of each rank's
-own, then tries RetinaNet and Faster R-CNN. Here the same steps run in one
-process on all 4 rows, and the CLI on the same data.
+own. Here the same steps run in one process on all 4 rows, and the CLI on
+the same data.
 
 Tolerances and why. The two ranks compute the whole-batch step in another
 rounding: BatchNorm moments from float64 sums of the ranks' parts against

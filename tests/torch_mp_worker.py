@@ -4,7 +4,9 @@
 the environment ``torchrun`` would give them (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``),
 waits for both within a timeout, kills them in any case, and returns each
-rank's output; a rank that fails or prints no ``TORCH_MP_OK rank=<r>`` line
+rank's output (``start`` and ``wait`` apart let the caller work while the
+ranks run; each rank writes its output to a log file in ``out_dir``); a
+rank that fails or prints no ``TORCH_MP_OK rank=<r>`` line
 fails the calling test. The ranks bring the group up with
 ``parallel.mesh.initialize_distributed("cpu")`` (gloo on ``127.0.0.1``),
 run one scenario's checks, write what the launcher compares into
@@ -17,8 +19,15 @@ run one scenario's checks, write what the launcher compares into
     the weights in ``out_dir/yolo.pt``, and the detect CLI with
     ``--data-parallel``;
   * ``train``: YOLOv5 and SSDLite train steps on the ranks' rows of the
-    global batch in ``out_dir/batch_*.npz``, the train CLI, and the
-    frozen-norm families' refusal.
+    global batch in ``out_dir/batch_*.npz`` and the train CLI;
+  * ``train_frozen``: RetinaNet's loss on the ranks' rows of the head
+    outputs in ``out_dir/retina_loss.npz``, RetinaNet and Faster R-CNN
+    train steps on the ranks' rows of ``out_dir/batch_frozen.npz`` (Faster
+    R-CNN's sampling draws for the whole batch from
+    ``out_dir/draws_*.npz``), the Faster R-CNN train CLI, and (rank 0)
+    the detect CLI on its checkpoint;
+  * ``frcnn_cli_one`` (one process, ``solo``): the same train CLI without
+    a process group, the reference of the two ranks' run.
 
 Imports torch, numpy and ``edgeml_tpu_torch`` only: never JAX.
 """
@@ -37,6 +46,11 @@ NPROC = 2
 # any two roundings (its 1x1 BatchNorms over 4 images), so it takes one
 TRAIN_STEPS = {"yolo": 2, "ssd": 1}
 TRAIN_LR = 0.01
+# the train_frozen scenario: SGD steps, learning rates (RetinaNet's loss
+# climbs from a seeded init at 0.01), Faster R-CNN's proposals an image
+FROZEN_STEPS = 2
+FROZEN_LR = {"retina": 1e-3, "frcnn": 0.01}
+FROZEN_POST_NMS = 64
 # the detect scenario's run_detection arguments
 DETECT_KW = dict(batch_size=8, conf_thres=0.2, iou_thres=0.5, img_size=64)
 
@@ -49,30 +63,62 @@ def _free_port():
     return port
 
 
-def spawn(scenario: str, out_dir, nproc: int = NPROC, timeout: int = 240):
-    """Run ``scenario`` on ``nproc`` ranks; returns their outputs."""
+def _launch(scenario, out_dir, env, log_name):
+    """One process of this file on ``scenario``, its output to
+    ``out_dir/log_name``."""
+    log = os.path.join(str(out_dir), log_name)
+    with open(log, "w") as f:
+        p = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), scenario,
+             str(out_dir)], env=env, cwd=REPO, stdout=f,
+            stderr=subprocess.STDOUT)
+    p.log = log
+    return p
+
+
+def start(scenario: str, out_dir, nproc: int = NPROC):
+    """Start ``scenario`` on ``nproc`` ranks, each writing its output to
+    ``out_dir/<scenario>_rank<r>.log``; ``wait`` collects them, so the
+    caller may work beside them."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
                WORLD_SIZE=str(nproc), LOCAL_WORLD_SIZE=str(nproc),
                OMP_NUM_THREADS="1", PYTHONPATH=REPO)
-    procs = [
-        subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), scenario,
-             str(out_dir)],
-            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=REPO,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(nproc)
-    ]
-    outs = []
+    return [_launch(scenario, out_dir,
+                    dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                    f"{scenario}_rank{r}.log") for r in range(nproc)]
+
+
+def solo(scenario: str, out_dir):
+    """Start ``scenario`` in one process without a launcher's environment
+    (no process group); ``wait`` collects it as rank 0."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env.update(OMP_NUM_THREADS="1", PYTHONPATH=REPO)
+    return [_launch(scenario, out_dir, env, f"{scenario}_solo.log")]
+
+
+def spawn(scenario: str, out_dir, nproc: int = NPROC, timeout: int = 240):
+    """Run ``scenario`` on ``nproc`` ranks; returns their outputs."""
+    return wait(start(scenario, out_dir, nproc), timeout)
+
+
+def wait(procs, timeout: int = 240):
+    """Each started rank's output, within ``timeout`` s; every rank is
+    killed in any case."""
     try:
         for p in procs:
-            out, _ = p.communicate(timeout=timeout)
-            outs.append(out)
+            p.wait(timeout=timeout)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    outs = []
+    for p in procs:
+        with open(p.log) as f:
+            outs.append(f.read())
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r} failed:\n{out[-4000:]}"
         assert f"TORCH_MP_OK rank={r}" in out, out[-2000:]
@@ -115,20 +161,60 @@ def train_nets():
             for f, name, s in (("yolo", "yolov5n", 3), ("ssd", "ssd", 4))]
 
 
-def run_steps(net, images, targets, valid, steps):
+def frozen_nets():
+    """(family, net) pairs of the train_frozen scenario, full width from
+    fixed seeds at 64 px, 4 classes + background: RetinaNet, and Faster
+    R-CNN keeping 64 proposals an image."""
+    import torch
+
+    from edgeml_tpu_torch.models.engine import make_detector
+    from edgeml_tpu_torch.models.faster_rcnn import FasterRCNN
+
+    return [("retina", make_detector(
+                "retinanet", 4, 64,
+                generator=torch.Generator().manual_seed(6))),
+            ("frcnn", FasterRCNN(
+                num_classes=5, image_size=64, rpn_post_nms=FROZEN_POST_NMS,
+                generator=torch.Generator().manual_seed(7)))]
+
+
+def load_draws(path):
+    """The ``Draws`` saved at ``path`` (an npz of its four fields)."""
+    import numpy as np
+    import torch
+
+    from edgeml_tpu_torch.models.rcnn_loss import Draws
+
+    with np.load(path) as d:
+        return Draws(*(torch.from_numpy(d[k]) for k in Draws._fields))
+
+
+def run_steps(net, images, targets, valid, steps, lr=TRAIN_LR, draws=None):
     """``steps`` SGD steps of the family's TrainStep on one batch: per step
     the loss and its parts (floats), then the net's parameters and
-    BatchNorm statistics and the optimiser's trace, as NumPy arrays."""
+    BatchNorm statistics and the optimiser's trace, as NumPy arrays.
+    ``draws``: Faster R-CNN's sampling draws of each step, for the whole
+    global batch (the step keeps this rank's rows)."""
     import torch
 
     from edgeml_tpu_torch.models.engine import make_family_train_step
     from edgeml_tpu_torch.models.train import TrainConfig
 
-    _, step = make_family_train_step(net, TrainConfig(lr=TRAIN_LR))
+    _, step = make_family_train_step(net, TrainConfig(lr=lr))
+    if draws is not None:
+        queue = list(draws)
+
+        def draw_fn(b, n_rpn, n_roi, device):
+            d = queue.pop(0)
+            assert d.rpn_pos.shape == (b, n_rpn), (d.rpn_pos.shape, b)
+            assert d.roi_pos.shape == (b, n_roi), (d.roi_pos.shape, b)
+            return d
+
+        step.draw_fn = draw_fn
     args = [torch.from_numpy(a) for a in (images, targets, valid)]
     losses = []
     for _ in range(steps):
-        loss, parts = step(*args, TRAIN_LR)
+        loss, parts = step(*args, lr)
         losses.append({"loss": float(loss),
                        **{k: float(v) for k, v in parts.items()}})
     state = {k: v.detach().numpy().copy()
@@ -137,11 +223,25 @@ def run_steps(net, images, targets, valid, steps):
             "trace": step.opt.state_dict()["trace"]}
 
 
-def train_cli_args(root, save_dir, extra=()):
+def train_cli_args(root, save_dir, extra=(), model="yolov5n"):
     return [os.path.join(root, "images"), save_dir, "--label-dir",
-            os.path.join(root, "labels"), "--model", "yolov5n",
+            os.path.join(root, "labels"), "--model", model,
             "--img-size", "64", "-b", "4", "--epochs", "1", "--device",
             "cpu", "--print-freq", "1", "--seed", "5", *extra]
+
+
+def state_digest(state):
+    """One SHA-256 over a state's arrays, key by key: equal digests are
+    equal bits."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in sorted(state):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(state[k]).tobytes())
+    return h.hexdigest()
 
 
 # ---------------------------------------------------------------------------
@@ -243,9 +343,6 @@ def _train(out_dir, me):
     import numpy as np
 
     from edgeml_tpu_torch.cli import train as train_cli
-    from edgeml_tpu_torch.models.engine import make_detector, \
-        make_family_train_step
-    from edgeml_tpu_torch.models.train import TrainConfig
     from edgeml_tpu_torch.parallel import mesh
 
     result = {}
@@ -276,14 +373,72 @@ def _train(out_dir, me):
          for t in m.state_dict().values()])
     assert sums[0] == sums[-1], "the ranks' weights or EMA differ"
 
-    # RetinaNet and Faster R-CNN refuse several processes
-    for name in ("retinanet", "faster_rcnn"):
-        try:
-            make_family_train_step(make_detector(name, 2, 64), TrainConfig())
-        except NotImplementedError as e:
-            assert "ROADMAP" in str(e), e
-        else:
-            raise AssertionError(f"{name} trained under two ranks")
+
+def _train_frozen(out_dir, me):
+    import numpy as np
+    import torch
+
+    from edgeml_tpu_torch.cli import detect as detect_cli
+    from edgeml_tpu_torch.models import retinanet as tretina
+    from edgeml_tpu_torch.parallel import mesh
+
+    nets = frozen_nets()
+    # RetinaNet's loss on this rank's rows: its share of the global mean
+    with np.load(os.path.join(out_dir, "retina_loss.npz")) as d:
+        rows = {k: torch.from_numpy(mesh.shard_along(d[k])) for k in d}
+    total, parts = tretina.retina_loss(
+        nets[0][1], rows["cls"], rows["reg"],
+        torch.from_numpy(tretina.retina_anchors(64)), rows["boxes"],
+        rows["labels"], rows["valid"])
+    result = {"retina_loss": {"total": float(total),
+                              **{k: float(v) for k, v in parts.items()}}}
+    # the train steps on this rank's rows of the global batch
+    with np.load(os.path.join(out_dir, "batch_frozen.npz")) as d:
+        batch = [mesh.shard_along(d[k]) for k in ("x", "tg", "valid")]
+    draws = [load_draws(os.path.join(out_dir, f"draws_{k}.npz"))
+             for k in range(FROZEN_STEPS)]
+    for family, net in nets:
+        got = run_steps(net, *batch, FROZEN_STEPS, FROZEN_LR[family],
+                        draws if family == "frcnn" else None)
+        digests = mesh.allgather_object(
+            [state_digest(got["state"]), state_digest(got["trace"])])
+        result[family] = {"losses": got["losses"], "digests": digests}
+        if me == 0:
+            np.savez(os.path.join(out_dir, f"state_{family}.npz"),
+                     **got["state"])
+            np.savez(os.path.join(out_dir, f"trace_{family}.npz"),
+                     **got["trace"])
+    with open(os.path.join(out_dir, f"train_frozen_{me}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+    # the Faster R-CNN train CLI, each rank given its own save_dir: only
+    # rank 0's is written
+    _frcnn_cli(out_dir, f"cli_rank{me}", f"cli_{me}.pkl")
+    if me == 0:  # the port's detect CLI serves rank 0's checkpoint
+        detect_cli.main(detect_cli.getargs(
+            [os.path.join(out_dir, "serve"), os.path.join(out_dir, "served"),
+             "--model", "faster_rcnn", "--dataset", "voc", "--model-path",
+             os.path.join(out_dir, "cli_rank0", "checkpoint.pth"),
+             "--batch-size", "1", "--device", "cpu"]))
+
+
+def _frcnn_cli(out_dir, save, result):
+    """The Faster R-CNN train CLI into ``out_dir/save``; its per-step
+    losses and its weights' digest into ``out_dir/result``."""
+    from edgeml_tpu_torch.cli import train as train_cli
+
+    res = train_cli.main(train_cli.getargs(train_cli_args(
+        out_dir, os.path.join(out_dir, save), model="faster_rcnn")))
+    with open(os.path.join(out_dir, result), "wb") as f:
+        pickle.dump({"losses": list(res["loggers"][0].meters["loss"].deque),
+                     "digest": state_digest(
+                         {k: v.detach().numpy()
+                          for k, v in res["state"].state_dict().items()})},
+                    f)
+
+
+def _frcnn_cli_one(out_dir, me):
+    _frcnn_cli(out_dir, "cli_one", "cli_one.pkl")
 
 
 def main():
@@ -293,10 +448,11 @@ def main():
 
     torch.set_num_threads(1)
     scenario, out_dir = sys.argv[1], sys.argv[2]
-    me = int(os.environ["RANK"])
-    initialize_distributed("cpu")
-    {"surface": _surface, "detect": _detect, "train": _train}[scenario](
-        out_dir, me)
+    me = int(os.environ.get("RANK", "0"))
+    initialize_distributed("cpu")  # a no-op in a process started by solo()
+    {"surface": _surface, "detect": _detect, "train": _train,
+     "train_frozen": _train_frozen, "frcnn_cli_one": _frcnn_cli_one}[
+        scenario](out_dir, me)
     print(f"TORCH_MP_OK rank={me}", flush=True)
 
 

@@ -24,6 +24,8 @@ from functools import lru_cache
 
 import numpy as np
 
+from ..utils.profiling import span
+
 
 def list_images(img_dir: str):
     """Sorted image file names — every regular file in the directory. No
@@ -156,26 +158,27 @@ def iter_batches(
         (inference).
     """
     idx = np.arange(len(names)) if order is None else np.asarray(order)
-    spans = [
+    chunks = [
         idx[s : s + batch_size] for s in range(0, len(idx), batch_size)
     ]
-    if drop_last and spans and len(spans[-1]) < batch_size:
-        spans.pop()
+    if drop_last and chunks and len(chunks[-1]) < batch_size:
+        chunks.pop()
 
-    def build(span):
-        items = [
-            (names[i], decode_image(os.path.join(img_dir, names[i])))
-            for i in span
-        ]
-        return make_batch(items)
+    def build(chunk):
+        with span("load.batch"):
+            items = [
+                (names[i], decode_image(os.path.join(img_dir, names[i])))
+                for i in chunk
+            ]
+            return make_batch(items)
 
     with ThreadPoolExecutor(max_workers=workers) as pool:
         window: deque = deque()
-        for span in spans[: prefetch + 1]:
-            window.append(pool.submit(build, span))
+        for chunk in chunks[: prefetch + 1]:
+            window.append(pool.submit(build, chunk))
         next_submit = prefetch + 1
         while window:
             yield window.popleft().result()
-            if next_submit < len(spans):
-                window.append(pool.submit(build, spans[next_submit]))
+            if next_submit < len(chunks):
+                window.append(pool.submit(build, chunks[next_submit]))
                 next_submit += 1

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from ..data.loader import resize_bilinear
 from ..parallel.mesh import all_sum, world_size
+from ..utils.profiling import span
 
 
 class CastCache:
@@ -452,14 +453,15 @@ def letterbox_batch(images, size: int = 640):
     per-image (ratio, dw, dh) for unmapping boxes. The YOLOv5 letterbox
     convention: symmetric padding, gray fill.
     """
-    out = np.full((len(images), size, size, 3), PAD_VALUE, np.float32)
-    meta = np.zeros((len(images), 3), np.float32)
-    for i, img in enumerate(images):
-        h, w = img.shape[:2]
-        r = min(size / h, size / w)
-        nh, nw = int(round(h * r)), int(round(w * r))
-        resized = resize_bilinear(np.asarray(img, np.float32), nh, nw)
-        dh, dw = (size - nh) // 2, (size - nw) // 2
-        out[i, dh : dh + nh, dw : dw + nw] = resized
-        meta[i] = (r, dw, dh)
-    return out, meta
+    with span("prep.letterbox"):
+        out = np.full((len(images), size, size, 3), PAD_VALUE, np.float32)
+        meta = np.zeros((len(images), 3), np.float32)
+        for i, img in enumerate(images):
+            h, w = img.shape[:2]
+            r = min(size / h, size / w)
+            nh, nw = int(round(h * r)), int(round(w * r))
+            resized = resize_bilinear(np.asarray(img, np.float32), nh, nw)
+            dh, dw = (size - nh) // 2, (size - nw) // 2
+            out[i, dh : dh + nh, dw : dw + nw] = resized
+            meta[i] = (r, dw, dh)
+        return out, meta

@@ -46,6 +46,7 @@ import torch.nn as nn
 from ..ops.gather import gather_rows
 from ..ops.nms import _scalar, nms_rows, topk1d
 from ..ops.nms_seq import suppress_mask_seq
+from ..utils.profiling import span
 from .common import (
     ConvNormAct, DtypeConv2d, DtypeLinear, FrozenBatchNorm2d, host_array,
     jax_conv, load_jax_conv, seeded_init_,
@@ -382,9 +383,10 @@ class FasterRCNN(nn.Module):
         for li, k in enumerate(ks):
             seg_boxes[:, li, :k] = boxes[:, starts[li]:starts[li + 1]]
             seg_p[:, li, :k] = p[:, starts[li]:starts[li + 1]]
-        kept, _ = suppress_mask_seq(seg_boxes.view(-1, kmax, 4),
-                                    seg_p.view(-1, kmax), RPN_NMS_THRESH,
-                                    kmax)
+        with span("nms.suppress"):
+            kept, _ = suppress_mask_seq(seg_boxes.view(-1, kmax, 4),
+                                        seg_p.view(-1, kmax), RPN_NMS_THRESH,
+                                        kmax)
         kept = kept.view(b, len(ks), kmax)
         kept = torch.cat([kept[:, li, :k] for li, k in enumerate(ks)], 1)
 
@@ -447,15 +449,21 @@ class FasterRCNN(nn.Module):
         dtype: None (f32) or torch.bfloat16 for the backbone, RPN head,
         RoIAlign and box head; every decision (proposal decode, top-k and
         suppression, softmax, box decode, final NMS) stays f32."""
-        feats = self.features(x if dtype is None else x.to(dtype))
-        objs, regs = self.run_rpn(feats)
-        boxes, valid = self.proposals(objs, regs)
-        pooled = self.roi_align(feats[:4], boxes,
-                                ROI_PYR if dtype is None else None)
-        cls, reg = self.box_head(pooled, dtype)
+        with span("detect.trunk"):
+            feats = self.features(x if dtype is None else x.to(dtype))
+            objs, regs = self.run_rpn(feats)
+        with span("detect.proposals"):
+            boxes, valid = self.proposals(objs, regs)
+        with span("detect.roi_align"):
+            pooled = self.roi_align(feats[:4], boxes,
+                                    ROI_PYR if dtype is None else None)
+        with span("detect.box_head"):
+            cls, reg = self.box_head(pooled, dtype)
         b, p = valid.shape
-        return self.postprocess(cls.view(b, p, -1), reg.view(b, p, -1, 4),
-                                boxes, valid, score_thresh, nms_thresh)
+        with span("detect.postprocess"):
+            return self.postprocess(cls.view(b, p, -1),
+                                    reg.view(b, p, -1, 4), boxes, valid,
+                                    score_thresh, nms_thresh)
 
     # ---- weights -----------------------------------------------------------
 

@@ -24,6 +24,7 @@ files of its own images.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from pathlib import Path
 
@@ -37,6 +38,7 @@ from ..device import exact_f32_cuda, resolve_device
 from ..ops.nms import nms_split_batch
 from ..parallel.mesh import local_device, replicate, shard_along, \
     world_size
+from ..utils.profiling import span
 from .common import letterbox_batch
 from .faster_rcnn import FasterRCNN
 from .quant import prepare_int8, q8_predict, tree_to
@@ -100,14 +102,17 @@ def detect_batch(net: YoloV5, images, meta, orig_hw, conf_thres: float,
     then the dtype of its dequantized obj/cls logits (bf16 keys the bf16
     NMS tail; boxes stay f32).
     Returns (dets (B, max_det, 6) rows [cls, x, y, w, h, conf], valid)."""
-    if images.dtype == torch.uint8:
-        images = images.to(torch.float32) / 255.0
-    if q8 is not None:
-        pred = q8_predict(net, q8, images, score_dtype=dtype)
-    else:
-        pred = net.predict(images, dtype=dtype)
-    return _nms_unmap(pred, meta, orig_hw, conf_thres, iou_thres,
-                      max_det, multi_label)
+    with span("detect"):
+        if images.dtype == torch.uint8:
+            images = images.to(torch.float32) / 255.0
+        with span("detect.trunk"):
+            if q8 is not None:
+                pred = q8_predict(net, q8, images, score_dtype=dtype)
+            else:
+                pred = net.predict(images, dtype=dtype)
+        with span("detect.tail"):
+            return _nms_unmap(pred, meta, orig_hw, conf_thres, iou_thres,
+                              max_det, multi_label)
 
 
 @torch.no_grad()
@@ -129,40 +134,46 @@ def _detect_generic(net, images, conf_thres: float, iou_thres: float,
     x_orig / w in the image."""
     if q8 is not None and not isinstance(net, SSDLite):
         raise ValueError("int8 (q8) serving: YOLO and SSDLite only")
-    x = images if dtype is None else images.to(dtype)
-    if isinstance(net, SSDLite):
-        if q8 is not None:
-            cls_logits, reg = q8_ssd_apply(net, q8, images)
+    with span("detect"):
+        x = images if dtype is None else images.to(dtype)
+        if isinstance(net, SSDLite):
+            with span("detect.trunk"):
+                if q8 is not None:
+                    cls_logits, reg = q8_ssd_apply(net, q8, images)
+                else:
+                    cls_logits, reg = net(x)
+            with span("detect.tail"):
+                dets, valid = ssd_postprocess(
+                    net, cls_logits.to(torch.float32), reg.to(torch.float32),
+                    net.anchors(images.device), score_thresh=conf_thres,
+                    nms_thresh=iou_thres)
+        elif isinstance(net, RetinaNet):
+            with span("detect.trunk"):
+                cls_logits, reg = net(x)
+            with span("detect.tail"):
+                dets, valid = retina_postprocess(
+                    net, cls_logits, reg, net.anchors(images.device),
+                    score_thresh=conf_thres, nms_thresh=iou_thres)
+        elif isinstance(net, FasterRCNN):
+            dets, valid = net.detect(x, score_thresh=conf_thres,
+                                     nms_thresh=iou_thres, dtype=dtype)
         else:
-            cls_logits, reg = net(x)
-        dets, valid = ssd_postprocess(
-            net, cls_logits.to(torch.float32), reg.to(torch.float32),
-            net.anchors(images.device), score_thresh=conf_thres,
-            nms_thresh=iou_thres)
-    elif isinstance(net, RetinaNet):
-        cls_logits, reg = net(x)
-        dets, valid = retina_postprocess(
-            net, cls_logits, reg, net.anchors(images.device),
-            score_thresh=conf_thres, nms_thresh=iou_thres)
-    elif isinstance(net, FasterRCNN):
-        dets, valid = net.detect(x, score_thresh=conf_thres,
-                                 nms_thresh=iou_thres, dtype=dtype)
-    else:
-        raise TypeError(f"{type(net).__name__} is not yet ported")
-    s = net.image_size
-    x1, y1, x2, y2 = (dets[..., i] / s for i in range(4))
-    out = torch.stack([dets[..., 5], (x1 + x2) / 2, (y1 + y2) / 2, x2 - x1,
-                       y2 - y1, dets[..., 4]], dim=-1)
-    return out, valid
+            raise TypeError(f"{type(net).__name__} is not yet ported")
+        s = net.image_size
+        x1, y1, x2, y2 = (dets[..., i] / s for i in range(4))
+        out = torch.stack([dets[..., 5], (x1 + x2) / 2, (y1 + y2) / 2,
+                           x2 - x1, y2 - y1, dets[..., 4]], dim=-1)
+        return out, valid
 
 
 def square_batch(images, size: int):
     """Host side of SSDLite/RetinaNet/Faster R-CNN serving: each (H, W, 3)
     image in [0, 1] resized to (size, size) and normalised with
     torchvision's mean/std; returns (B, size, size, 3) f32."""
-    rs = np.stack([resize_bilinear(np.asarray(im, np.float32), size, size)
-                   for im in images])
-    return (rs - IMAGENET_MEAN) / IMAGENET_STD
+    with span("prep.square"):
+        rs = np.stack([resize_bilinear(np.asarray(im, np.float32), size,
+                                       size) for im in images])
+        return (rs - IMAGENET_MEAN) / IMAGENET_STD
 
 
 def map_classes(rows, class_map):
@@ -289,19 +300,32 @@ def run_detection(
                             f"{r[4]:.6f} {r[5]:.6f}\n"
                         )
 
-    for chunk_names, arr, meta, hw in iter_batches(
-        img_dir, names, local_bs, make_batch, order=order
-    ):
-        if is_yolo:
-            dets, valid = detect_batch(
-                net, torch.from_numpy(arr).to(dev),
-                torch.from_numpy(meta).to(dev), torch.from_numpy(hw).to(dev),
-                conf_thres, iou_thres, dtype=dtype, q8=q8)
-        else:
-            dets, valid = _detect_generic(
-                net, torch.from_numpy(arr).to(dev), conf_thres, iou_thres,
-                dtype=dtype, q8=q8)
-        save_batch(chunk_names, dets.cpu().numpy(), valid.cpu().numpy())
+    # next() by hand, so the wait for each batch is a span of its own
+    with contextlib.closing(iter_batches(img_dir, names, local_bs,
+                                         make_batch, order=order)) as batches:
+        while True:
+            with span("serve.loader_wait"):
+                item = next(batches, None)
+            if item is None:
+                break
+            chunk_names, arr, meta, hw = item
+            with span("serve.batch"):
+                with span("serve.h2d"):
+                    x = torch.from_numpy(arr).to(dev)
+                    if is_yolo:
+                        meta = torch.from_numpy(meta).to(dev)
+                        hw = torch.from_numpy(hw).to(dev)
+                if is_yolo:
+                    dets, valid = detect_batch(net, x, meta, hw, conf_thres,
+                                               iou_thres, dtype=dtype, q8=q8)
+                else:
+                    dets, valid = _detect_generic(net, x, conf_thres,
+                                                  iou_thres, dtype=dtype,
+                                                  q8=q8)
+                with span("serve.d2h"):
+                    dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+                with span("serve.save"):
+                    save_batch(chunk_names, dets, valid)
 
 
 def dump_features(

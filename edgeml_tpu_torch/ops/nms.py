@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .gather import gather_rows
 from .nms_fused import (
     MAX_K_BLOCKED, greedy_keep_mask_blocked_plain, greedy_keep_mask_fused,
@@ -119,12 +120,14 @@ def _emit_batch(cand_boxes, top_scores, cls_idx, iou_thres, max_det):
     <= 1024 the monolithic one, K <= 2048 the blocked one) and their plain
     versions for CPU tensors; above it the global fixpoint on any
     device."""
-    off = cand_boxes + cls_idx[..., None] * MAX_WH
-    if top_scores.shape[1] > MAX_K_BLOCKED:
-        kept = greedy_keep_mask_global(off, top_scores, float(iou_thres))
-    else:
-        kept = greedy_keep_mask_fused(off, top_scores, float(iou_thres))
-    return _compact(cand_boxes, top_scores, cls_idx, kept, max_det)
+    with span("nms.suppress"):
+        off = cand_boxes + cls_idx[..., None] * MAX_WH
+        if top_scores.shape[1] > MAX_K_BLOCKED:
+            kept = greedy_keep_mask_global(off, top_scores, float(iou_thres))
+        else:
+            kept = greedy_keep_mask_fused(off, top_scores, float(iou_thres))
+    with span("nms.emit"):
+        return _compact(cand_boxes, top_scores, cls_idx, kept, max_det)
 
 
 def _gather_rows(x, idx):
@@ -178,17 +181,18 @@ def candidates(obj, xywh, cls, conf_thres=0.001, max_cand=1024,
 
     Returns (cand_boxes (B, k, 4) f32 xyxy, top_scores (B, k) in the score
     dtype, entries <= 0 not real; cls_idx (B, k) f32)."""
-    nc = cls.shape[-1]
-    if multi_label and nc > 1:
-        top_scores, bxywh, col = _rank_pairs_exact(obj, xywh, cls,
-                                                   conf_thres, max_cand)
-    else:
-        top_scores, bxywh, col = _rank_boxes_single(obj, xywh, cls,
-                                                    conf_thres, max_cand)
-    half = bxywh[..., 2:4] * 0.5
-    cand_boxes = torch.cat([bxywh[..., :2] - half, bxywh[..., :2] + half],
-                           dim=-1)
-    return cand_boxes, top_scores, col.to(torch.float32)
+    with span("nms.candidates"):
+        nc = cls.shape[-1]
+        if multi_label and nc > 1:
+            top_scores, bxywh, col = _rank_pairs_exact(obj, xywh, cls,
+                                                       conf_thres, max_cand)
+        else:
+            top_scores, bxywh, col = _rank_boxes_single(obj, xywh, cls,
+                                                        conf_thres, max_cand)
+        half = bxywh[..., 2:4] * 0.5
+        cand_boxes = torch.cat([bxywh[..., :2] - half,
+                                bxywh[..., :2] + half], dim=-1)
+        return cand_boxes, top_scores, col.to(torch.float32)
 
 
 def nms_split_batch(
@@ -255,9 +259,11 @@ def nms_rows(boxes: torch.Tensor, scores: torch.Tensor,
     :param cls_ids: (B, N) float class ids (class-aware offsets).
     :return: (dets (B, max_det, 6) [x1, y1, x2, y2, score, cls], valid).
     """
-    k = min(max_cand, scores.shape[-1])
-    top_scores, top_idx = topk1d(torch.where(scores > 0, scores, -1.0), k)
-    cand_boxes = gather_rows(boxes, top_idx)
-    cand_cls = gather_rows(cls_ids[..., None], top_idx)[..., 0]
+    with span("nms.candidates"):
+        k = min(max_cand, scores.shape[-1])
+        top_scores, top_idx = topk1d(torch.where(scores > 0, scores, -1.0),
+                                     k)
+        cand_boxes = gather_rows(boxes, top_idx)
+        cand_cls = gather_rows(cls_ids[..., None], top_idx)[..., 0]
     return _emit_batch(cand_boxes, top_scores, cand_cls, float(iou_thres),
                        max_det)

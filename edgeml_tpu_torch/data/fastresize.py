@@ -3,10 +3,12 @@
 
 Built with ``g++`` at first use into ``edgeml_tpu_torch/_build/`` by the same
 recipe and flags as ``fastio`` (never into ``native/``). The JAX package
-evaluates its letterbox and square-resize taps through this library, so the
-port does too: with the same taps (``loader._linear_taps``) and the same
-machine code its inputs are bit-equal to the JAX package's. A failed build or
-a nonzero return raises; nothing falls back to the NumPy evaluation.
+evaluates its resize taps through this library, and so does the port's
+``loader.resize_bilinear`` (YOLO augmentation, the train CLI): with the same
+taps (``loader._linear_taps``) and the same machine code its pixels are
+bit-equal to the JAX package's. The port's letterbox and square resize go
+through ``fastprep`` instead, the same arithmetic in one pass. A failed build
+or a nonzero return raises; nothing falls back to the NumPy evaluation.
 """
 
 from __future__ import annotations

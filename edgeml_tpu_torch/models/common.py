@@ -33,7 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..data.loader import resize_bilinear
+from ..data import fastprep
 from ..parallel.mesh import all_sum, world_size
 from ..utils.profiling import span
 
@@ -449,19 +449,19 @@ PAD_VALUE = 114 / 255  # the YOLOv5 letterbox's gray fill
 def letterbox_batch(images, size: int = 640):
     """Resize-with-aspect + pad a batch of (H, W, 3) images to (size, size).
 
-    Host-side NumPy (ragged inputs); returns (B, size, size, 3) float32 plus
-    per-image (ratio, dw, dh) for unmapping boxes. The YOLOv5 letterbox
-    convention: symmetric padding, gray fill.
+    Host side (ragged inputs), one native pass (``data/fastprep.py``);
+    returns (B, size, size, 3) float32 plus per-image (ratio, dw, dh) for
+    unmapping boxes. The YOLOv5 letterbox convention: symmetric padding,
+    gray fill.
     """
     with span("prep.letterbox"):
-        out = np.full((len(images), size, size, 3), PAD_VALUE, np.float32)
         meta = np.zeros((len(images), 3), np.float32)
+        places = []
         for i, img in enumerate(images):
             h, w = img.shape[:2]
             r = min(size / h, size / w)
             nh, nw = int(round(h * r)), int(round(w * r))
-            resized = resize_bilinear(np.asarray(img, np.float32), nh, nw)
             dh, dw = (size - nh) // 2, (size - nw) // 2
-            out[i, dh : dh + nh, dw : dw + nw] = resized
+            places.append((nh, nw, dh, dw))
             meta[i] = (r, dw, dh)
-        return out, meta
+        return fastprep.letterbox(images, size, places, PAD_VALUE), meta

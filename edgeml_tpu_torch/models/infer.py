@@ -31,9 +31,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..data import fastprep
 from ..data.io import V5_STAGE_NAMES
-from ..data.loader import decode_image, iter_batches, list_images, \
-    resize_bilinear
+from ..data.loader import decode_image, iter_batches, list_images
 from ..device import exact_f32_cuda, resolve_device
 from ..ops.nms import nms_split_batch
 from ..parallel.mesh import local_device, replicate, shard_along, \
@@ -169,11 +169,10 @@ def _detect_generic(net, images, conf_thres: float, iou_thres: float,
 def square_batch(images, size: int):
     """Host side of SSDLite/RetinaNet/Faster R-CNN serving: each (H, W, 3)
     image in [0, 1] resized to (size, size) and normalised with
-    torchvision's mean/std; returns (B, size, size, 3) f32."""
+    torchvision's mean/std in one native pass (``data/fastprep.py``);
+    returns (B, size, size, 3) f32."""
     with span("prep.square"):
-        rs = np.stack([resize_bilinear(np.asarray(im, np.float32), size,
-                                       size) for im in images])
-        return (rs - IMAGENET_MEAN) / IMAGENET_STD
+        return fastprep.square(images, size, IMAGENET_MEAN, IMAGENET_STD)
 
 
 def map_classes(rows, class_map):

@@ -2,10 +2,12 @@
 CPU: bit-equal on seeded ragged images, downscale and upscale.
 
 Both packages evaluate the same banded taps (``_linear_taps``) through the
-same native resampler (``native/resize.cpp``, built with the same g++ flags),
-so the tolerance is none. The port's binding builds into
-``edgeml_tpu_torch/_build/`` and raises when the build fails; the NumPy tap
-evaluation it keeps for reference agrees within 2e-6.
+same arithmetic (the JAX package through ``native/resize.cpp``; the port's
+letterbox and square resize through ``data/fastprep.cpp``, which evaluates
+the taps element for element as ``resize.cpp`` does, in one pass; both
+built with the same g++ flags), so the tolerance is none. The port's
+bindings build into ``edgeml_tpu_torch/_build/`` and raise when the build
+fails; the NumPy tap evaluation it keeps for reference agrees within 2e-6.
 """
 
 import os
@@ -17,7 +19,7 @@ import torch
 from edgeml_tpu.data import fastresize as jfastresize
 from edgeml_tpu.data import loader as jloader
 from edgeml_tpu.models.common import letterbox_batch as jletterbox_batch
-from edgeml_tpu_torch.data import fastio, fastresize, loader
+from edgeml_tpu_torch.data import fastio, fastprep, fastresize, loader
 from edgeml_tpu_torch.models.common import letterbox_batch
 from edgeml_tpu_torch.models.infer import square_batch
 
@@ -79,8 +81,25 @@ def test_numpy_evaluation_is_the_same_resampling(out_hw):
 
 
 def test_builds_into_the_package_build_dir(tmp_path, monkeypatch):
-    """The library is compiled into the port's _build/ (here redirected to a
-    temporary one), never into native/."""
+    """The one-pass prep library that letterbox_batch and square_batch call
+    is compiled into the port's _build/ (here redirected to a temporary
+    one), never into native/."""
+    native = os.path.dirname(fastresize.SRC)
+    before = sorted(os.listdir(native))
+    monkeypatch.setattr(fastio, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(fastprep, "_lib", None)
+    lb, _ = letterbox_batch(images(4, [(40, 30)]), 64)
+    sq = square_batch(images(4, [(40, 30)]), 32)
+    so = fastio.library_path(fastprep.SRC, "libfastprep")
+    assert so.startswith(str(tmp_path / "_build")) and os.path.isfile(so)
+    assert sorted(os.listdir(native)) == before
+    assert lb.dtype == sq.dtype == np.float32
+    assert lb.shape == (1, 64, 64, 3) and sq.shape == (1, 32, 32, 3)
+
+
+def test_resampler_builds_into_the_package_build_dir(tmp_path, monkeypatch):
+    """The resampler that resize_bilinear calls (yolo_aug, the train CLI)
+    is compiled into the port's _build/ too, never into native/."""
     native = os.path.dirname(fastresize.SRC)
     before = sorted(os.listdir(native))
     monkeypatch.setattr(fastio, "BUILD_DIR", str(tmp_path / "_build"))
@@ -93,7 +112,22 @@ def test_builds_into_the_package_build_dir(tmp_path, monkeypatch):
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
-    """A build that fails raises; resizing does not switch to NumPy."""
+    """A build of the prep library that fails raises; letterbox_batch and
+    square_batch do not switch to the two-step NumPy path."""
+    bad = tmp_path / "broken.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(fastprep, "SRC", str(bad))
+    monkeypatch.setattr(fastio, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(fastprep, "_lib", None)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        letterbox_batch(images(6, [(40, 30)]), 64)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        square_batch(images(6, [(40, 30)]), 64)
+
+
+def test_failed_resampler_build_raises(tmp_path, monkeypatch):
+    """A build of the resampler that fails raises; resizing does not switch
+    to NumPy."""
     bad = tmp_path / "broken.cpp"
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(fastresize, "SRC", str(bad))
@@ -101,8 +135,6 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(fastresize, "_lib", None)
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         loader.resize_bilinear(images(5, [(40, 30)])[0], 20, 15)
-    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
-        letterbox_batch(images(6, [(40, 30)]), 64)
 
 
 def test_nonzero_return_raises(monkeypatch):

@@ -168,6 +168,7 @@ def main(argv=None, device=None) -> int:
     import torch
 
     import edgeml_tpu_torch  # noqa: F401  (the system under test, present before anything runs)
+    from edgeml_tpu_torch.utils import profiling
 
     if device is None:
         if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
@@ -189,17 +190,28 @@ def main(argv=None, device=None) -> int:
             torch.cuda.synchronize()
         setup_s = since_start()
         t0 = log("setup (after imports)", t0)
-        e2e, spans, served, window_s = traffic.window(args.seconds)
-        if cuda:
-            torch.cuda.synchronize()
-        t0 = log("window", t0)
+        # the program's spans record in --trace 1 runs only: over the window,
+        # then (as annotations in the profile) over the traced sub-window
         traced, served_traced = None, []
-        if args.trace:
-            from benchmark.trace import Traced, summarize
+        try:
+            profiling.reset()
+            profiling.enable(bool(args.trace))
+            e2e, spans, served, window_s = traffic.window(args.seconds)
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = log("window", t0)
+            window_records = profiling.records()
+            profiling.reset()
+            if args.trace:
+                from benchmark.trace import Traced, summarize
 
-            with Traced() as t:
-                served_traced = traffic.traced()
-            t0 = log("traced sub-window", t0)
+                with Traced() as t:
+                    served_traced = traffic.traced()
+                t0 = log("traced sub-window", t0)
+        finally:
+            profiling.enable(False)
+            profiling.reset()
+        if args.trace:
             traced = summarize(t, tmp)
             t0 = log("trace reduction", t0)
         peak = torch.cuda.max_memory_allocated(device) if cuda else 0
@@ -220,9 +232,13 @@ def main(argv=None, device=None) -> int:
 
             flops_w, flops_t = run.family.request_flops(
                 run.device_state(), cfg, traffic.reference_images(), [served, served_traced], device)
+            from benchmark.spans import readings
+
             ctx = SimpleNamespace(spans=spans, window_s=window_s, flops_window=flops_w,
                                   trace=traced, flops_traced=flops_t,
-                                  f32_peak=card_peak(kind, "f32_flops") if cuda else None)
+                                  f32_peak=card_peak(kind, "f32_flops") if cuda else None,
+                                  span_records=window_records,
+                                  span_readings=readings(window_records, traced["by_span"]))
             for m in manifest["per_layer"]:
                 if reports(m, args.workload):
                     v = read_metric(m["name"], ctx)

@@ -42,7 +42,9 @@ def cuda_device():
 @pytest.fixture
 def tiny_cell(monkeypatch):
     """Point the harness at a tiny configuration and mix on the CPU:
-    returns a function (family, mix kind) -> workload name."""
+    returns a function (family, mix kind) -> workload name, the name of
+    the family's cell of that mix, so that the run reports what
+    ``BENCHMARK.json`` lists for the cell."""
     from benchmark import harness
 
     def use(family, kind, limits=None):
@@ -51,6 +53,6 @@ def tiny_cell(monkeypatch):
         lim = limits or harness.load_json(harness.HERE, "limits", f"{cell}.{mix}.json")
         monkeypatch.setattr(harness, "cell_spec", lambda name, manifest: (
             {"name": name, "chips": 1}, dict(TINY[family]), dict(MIXES[kind]), lim))
-        return f"tiny.{family}.{kind}"
+        return f"{cell}.{mix}"
 
     return use

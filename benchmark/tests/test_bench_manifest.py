@@ -99,5 +99,6 @@ def test_every_named_file_is_under_paths():
         mix = harness.load_json(harness.HERE, "traffic", w["traffic"] + ".json")
         assert os.path.isfile(os.path.join(harness.HERE, "generators", mix["generator"] + ".py"))
         assert os.path.isfile(os.path.join(harness.HERE, "limits", w["name"] + ".json"))
-    for m in M["per_layer"]:
-        assert os.path.isfile(os.path.join(harness.HERE, "metrics", m["name"] + ".py"))
+    readers = {f[:-3] for f in os.listdir(os.path.join(harness.HERE, "metrics"))
+               if f.endswith(".py") and f != "__init__.py"}
+    assert readers == {m["name"] for m in M["per_layer"]}

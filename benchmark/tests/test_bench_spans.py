@@ -1,15 +1,15 @@
-"""``spans.py``: ``by_span`` on a hand-written Chrome trace (nested
+"""Span readings: ``trace.by_span`` on a hand-written Chrome trace (nested
 annotations, device operations joined to their launches by correlation id,
-another thread's launches left out), the readings from span records, none
-without them (a program that records no spans), and whole runs on the CPU
-at a tiny size with recording on."""
+another thread's launches left out), ``spans.readings`` from span records,
+none without them (a program that records no spans), and whole ``--trace
+1`` runs of the harness on the CPU at a tiny size, which record spans."""
 
 import json
 
 import pytest
 import torch
 
-from benchmark import spans
+from benchmark import harness, spans, trace
 from edgeml_tpu_torch.utils.profiling import SpanRecord
 
 
@@ -28,7 +28,7 @@ def device(ts, dur, corr, cat="kernel"):
 
 
 EVENTS = [
-    ann(spans.WINDOW, 0, 1000),
+    ann(trace.WINDOW, 0, 1000),
     ann("detect", 10, 200), ann("detect.trunk", 20, 50), ann("detect.tail", 100, 100),
     ann("detect", 400, 100), ann("detect.trunk", 410, 40),
     launch(25, 1), launch(30, 2), launch(105, 3), launch(195, 4), launch(420, 5),
@@ -41,7 +41,7 @@ EVENTS = [
 
 
 def test_by_span_joins_launches_to_their_annotations():
-    got = spans.by_span(EVENTS)
+    got = trace.by_span(EVENTS)
     sp = got["spans"]
     assert set(sp) == {"detect", "detect.trunk", "detect.tail"}
     assert sp["detect"] == {"count": 2, "device_s": pytest.approx(72e-6), "kernels": 4,
@@ -56,7 +56,7 @@ def test_by_span_joins_launches_to_their_annotations():
 
 def test_by_span_needs_the_window():
     with pytest.raises(RuntimeError):
-        spans.by_span(EVENTS[1:])
+        trace.by_span(EVENTS[1:])
 
 
 def rec(i, name, parent, request, start, end, thread=1):
@@ -84,7 +84,7 @@ def test_readings_of_the_directory_loop():
         "detect.box_head": {"count": 2, "device_s": 0.02, "kernels": 2, "kernel_s": 0.02}}}
     got = spans.readings(recs, traced)
     assert got == pytest.approx({
-        "serve_loader_wait_ms.dir": 10, "serve_h2d_ms.dir": 5, "serve_detect_ms.dir": 45,
+        "serve_h2d_ms.dir": 5, "serve_detect_ms.dir": 45,
         "serve_d2h_ms.dir": 30, "serve_save_ms.dir": 8, "loader_busy_ms.dir": 40,
         "serve_covered_pct.dir": 98, "trunk_dev_ms.dir": 25, "box_head_dev_ms.dir": 10,
         "detect_kernel_pct.dir": 96})
@@ -103,8 +103,8 @@ def test_readings_of_frames():
     traced = {"kernel_s": 0.01, "spans": {
         "detect": {"count": 2, "device_s": 0.004, "kernels": 300, "kernel_s": 0.003}}}
     assert spans.readings(recs, traced) == pytest.approx({
-        "resize_host_ms.frame": 6, "detect_host_ms.frame": 20, "trunk_host_ms.frame": 8,
-        "nms_host_ms.frame": 7, "launches.frame": 150})
+        "detect_host_ms.frame": 20, "trunk_host_ms.frame": 8, "nms_host_ms.frame": 7,
+        "launches.frame": 150})
     # an nms.* span inside another counts once
     inner = rec(99, "nms.emit", 6, 2, 19, 20)
     assert spans.readings(recs + [inner])["nms_host_ms.frame"] == pytest.approx(7)
@@ -120,16 +120,14 @@ def test_a_run_with_spans_on_prints_the_readings(tiny_cell, capsys, family, kind
     from edgeml_tpu_torch.utils import profiling
 
     cell = tiny_cell(family, kind)
-    argv = ["--workload", cell, "--seed", "2147483659", "--seconds", "0.2", "--trace", "0"]
-    assert spans.main(argv, device=torch.device("cpu")) == 0
-    lines = capsys.readouterr().out.strip().splitlines()
-    result, got = json.loads(lines[-2]), json.loads(lines[-1])["spans"]
+    argv = ["--workload", cell, "--seed", "2147483659", "--seconds", "0.2", "--trace", "1"]
+    assert harness.main(argv, device=torch.device("cpu")) == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert result["correct"]
-    want = {"frame": {"resize_host_ms.frame", "detect_host_ms.frame",
-                      "trunk_host_ms.frame", "nms_host_ms.frame"},
-            "dir": {"serve_loader_wait_ms.dir", "loader_busy_ms.dir", "serve_h2d_ms.dir",
-                    "serve_detect_ms.dir", "serve_d2h_ms.dir", "serve_save_ms.dir",
-                    "serve_covered_pct.dir"}}[kind]
+    want = {"frame": {"detect_host_ms.frame", "trunk_host_ms.frame", "nms_host_ms.frame"},
+            "dir": {"loader_busy_ms.dir", "serve_h2d_ms.dir", "serve_detect_ms.dir",
+                    "serve_d2h_ms.dir", "serve_save_ms.dir"}}[kind]
+    got = {k: v["value"] for k, v in result["metrics"].items() if k in want}
     assert set(got) == want and all(v > 0 for v in got.values())
     # recording is off and empty again after the run
     assert profiling.records() == []

@@ -120,10 +120,24 @@ def _finish(rc, what, n, n_copied):
         copied += n_copied
 
 
-def square(images, size: int, mean: np.ndarray,
-           std: np.ndarray) -> np.ndarray:
+def _out(out, n: int, size: int) -> np.ndarray:
+    """``out`` checked as the (n, size, size, 3) float32 array of a call,
+    or a new one where it is None."""
+    if out is None:
+        return np.empty((n, size, size, 3), np.float32)
+    if (out.shape != (n, size, size, 3) or out.dtype != np.float32
+            or not out.flags.c_contiguous or not out.flags.writeable):
+        raise ValueError(f"out must be a writeable C-contiguous "
+                         f"({n}, {size}, {size}, 3) float32 array, got "
+                         f"{out.dtype} {out.shape}")
+    return out
+
+
+def square(images, size: int, mean: np.ndarray, std: np.ndarray,
+           out=None) -> np.ndarray:
     """(B, size, size, 3) float32: each image resampled to (size, size),
-    then ``(v - mean[c]) / std[c]`` (float32)."""
+    then ``(v - mean[c]) / std[c]`` (float32); written into ``out`` where
+    it is given (pinned memory, say), else into a new array."""
     if len(images) == 0:
         raise ValueError("square: no images")
     lib = _load()
@@ -134,20 +148,22 @@ def square(images, size: int, mean: np.ndarray,
     if mean.shape != (3,) or std.shape != (3,):
         raise ValueError(f"square: mean {mean.shape} and std {std.shape} "
                          f"must be (3,)")
-    out = np.empty((len(images), size, size, 3), np.float32)
+    out = _out(out, len(images), size)
     rc = lib.fastprep_square(descs, len(images), out.ctypes.data, size,
                              mean.ctypes.data, std.ctypes.data)
     _finish(rc, "fastprep_square", len(images), n_copied)
     return out
 
 
-def letterbox(images, size: int, places, pad: float) -> np.ndarray:
+def letterbox(images, size: int, places, pad: float,
+              out=None) -> np.ndarray:
     """(B, size, size, 3) float32: image i resampled to (nh, nw) of
     ``places[i] = (nh, nw, dh, dw)`` with its top-left corner at (dh, dw);
-    ``pad`` (as float32) everywhere else."""
+    ``pad`` (as float32) everywhere else; written into ``out`` where it is
+    given, else into a new array."""
     lib = _load()
     descs, keep, n_copied = _describe(images, places)
-    out = np.empty((len(images), size, size, 3), np.float32)
+    out = _out(out, len(images), size)
     rc = lib.fastprep_letterbox(descs, len(images), out.ctypes.data, size,
                                 pad)
     _finish(rc, "fastprep_letterbox", len(images), n_copied)

@@ -1,8 +1,9 @@
 """Streaming image-batch pipeline (host side).
 
-Images decode and letterbox per batch in background threads, prefetched so
-the host prepares the next batches while the device runs the current one.
-Peak host memory is bounded by (prefetch + 1) batches of decoded images.
+Images decode one by one on background threads, and each batch is then
+prepared (letterboxed or resized) on one of them, prefetched so the host
+prepares the next batches while the device runs the current one. Peak host
+memory is bounded by (prefetch + 1) batches of decoded images.
 
 Resizing computes banded bilinear taps with the semantics of the reference
 package's resize (half-pixel centres, triangle kernel widened to 1/scale
@@ -47,7 +48,10 @@ def decode_image(path: str) -> np.ndarray:
         return arr
     from PIL import Image
 
-    return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+    im = Image.open(path)
+    arr = np.asarray(im if im.mode == "RGB" else im.convert("RGB"), np.float32)
+    arr /= 255.0
+    return arr
 
 
 @lru_cache(maxsize=16)
@@ -148,6 +152,10 @@ def iter_batches(
 ):
     """Yield make_batch([(name, decoded_image), ...]) per batch, prefetched.
 
+    Each image decodes as a task of its own, so the workers share every
+    batch's decodes, the first batch's too; the batch's ``make_batch`` then
+    runs on one worker.
+
     :param names: image file names (relative to img_dir).
     :param make_batch: host preprocess: list of (name, HWC float image) ->
         arbitrary batch payload. Runs in a worker thread.
@@ -164,21 +172,27 @@ def iter_batches(
     if drop_last and chunks and len(chunks[-1]) < batch_size:
         chunks.pop()
 
-    def build(chunk):
+    def decode(i):
+        with span("load.decode"):
+            return names[i], decode_image(os.path.join(img_dir, names[i]))
+
+    def build(decodes):
+        # the pool takes tasks in the order they were queued, and a batch's
+        # decodes were queued before it: each is done or running on another
+        # worker, so this wait cannot deadlock
+        items = [d.result() for d in decodes]
         with span("load.batch"):
-            items = [
-                (names[i], decode_image(os.path.join(img_dir, names[i])))
-                for i in chunk
-            ]
             return make_batch(items)
 
     with ThreadPoolExecutor(max_workers=workers) as pool:
-        window: deque = deque()
-        for chunk in chunks[: prefetch + 1]:
-            window.append(pool.submit(build, chunk))
+
+        def submit(chunk):
+            return pool.submit(build, [pool.submit(decode, i) for i in chunk])
+
+        window: deque = deque(submit(chunk) for chunk in chunks[: prefetch + 1])
         next_submit = prefetch + 1
         while window:
             yield window.popleft().result()
             if next_submit < len(chunks):
-                window.append(pool.submit(build, chunks[next_submit]))
+                window.append(submit(chunks[next_submit]))
                 next_submit += 1

@@ -446,13 +446,13 @@ def upsample2x(x):
 PAD_VALUE = 114 / 255  # the YOLOv5 letterbox's gray fill
 
 
-def letterbox_batch(images, size: int = 640):
+def letterbox_batch(images, size: int = 640, out=None):
     """Resize-with-aspect + pad a batch of (H, W, 3) images to (size, size).
 
     Host side (ragged inputs), one native pass (``data/fastprep.py``);
-    returns (B, size, size, 3) float32 plus per-image (ratio, dw, dh) for
-    unmapping boxes. The YOLOv5 letterbox convention: symmetric padding,
-    gray fill.
+    returns (B, size, size, 3) float32 (``out`` where given) plus per-image
+    (ratio, dw, dh) for unmapping boxes. The YOLOv5 letterbox convention:
+    symmetric padding, gray fill.
     """
     with span("prep.letterbox"):
         meta = np.zeros((len(images), 3), np.float32)
@@ -464,4 +464,5 @@ def letterbox_batch(images, size: int = 640):
             dh, dw = (size - nh) // 2, (size - nw) // 2
             places.append((nh, nw, dh, dw))
             meta[i] = (r, dw, dh)
-        return fastprep.letterbox(images, size, places, PAD_VALUE), meta
+        return fastprep.letterbox(images, size, places, PAD_VALUE,
+                                  out=out), meta

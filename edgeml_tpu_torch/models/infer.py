@@ -1,11 +1,13 @@
 """End-to-end detector inference: images -> per-image detection files.
 
-The serving loop is plain: the host decodes and prepares one batch (in
-prefetching worker threads), the device runs trunk + decode + NMS on it, and
-the host writes that batch's files. YOLOv5 batches are letterboxed and their
-boxes unmapped; SSDLite, RetinaNet and Faster R-CNN batches are
-square-resized to the model's input size and normalised with torchvision's
-mean/std, so their normalised coordinates need no unmap. Output rows are
+The serving loop: worker threads decode the next batches image by image and
+prepare each batch straight into pinned host memory (on the card); the
+device runs trunk + decode + NMS on a batch while the host queues the next
+one, and a writer thread writes a batch's files while the device serves the
+one after it. YOLOv5 batches are letterboxed and their boxes unmapped;
+SSDLite, RetinaNet and Faster R-CNN batches are square-resized to the
+model's input size and normalised with torchvision's mean/std, so their
+normalised coordinates need no unmap. Output rows are
 (cls, x, y, w, h, conf), xywh-center normalised to the original image
 size, one ``.npy`` or ``.txt`` file per image named after the image stem; a
 ``class_map`` renames classes and drops the rows of unmapped ones. YOLOv5
@@ -25,7 +27,9 @@ files of its own images.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -149,7 +153,10 @@ def _detect_generic(net, images, conf_thres: float, iou_thres: float,
                     nms_thresh=iou_thres)
         elif isinstance(net, RetinaNet):
             with span("detect.trunk"):
-                cls_logits, reg = net(x)
+                feats = net.features(x)
+            with span("detect.head"):
+                cls_logits, reg = net.head_outputs(feats)
+            del feats
             with span("detect.tail"):
                 dets, valid = retina_postprocess(
                     net, cls_logits, reg, net.anchors(images.device),
@@ -166,13 +173,14 @@ def _detect_generic(net, images, conf_thres: float, iou_thres: float,
         return out, valid
 
 
-def square_batch(images, size: int):
+def square_batch(images, size: int, out=None):
     """Host side of SSDLite/RetinaNet/Faster R-CNN serving: each (H, W, 3)
     image in [0, 1] resized to (size, size) and normalised with
     torchvision's mean/std in one native pass (``data/fastprep.py``);
-    returns (B, size, size, 3) f32."""
+    returns (B, size, size, 3) f32 (``out`` where given)."""
     with span("prep.square"):
-        return fastprep.square(images, size, IMAGENET_MEAN, IMAGENET_STD)
+        return fastprep.square(images, size, IMAGENET_MEAN, IMAGENET_STD,
+                               out=out)
 
 
 def map_classes(rows, class_map):
@@ -270,6 +278,14 @@ def run_detection(
                        if world > 1 else range(s, s + batch_size))
              if i < len(names)]
 
+    # on the card a batch is prepared straight into pinned memory, so its
+    # copy up is queued without holding the host
+    def staged(n):
+        """(B, n, n, 3) float32 for a batch: a pinned tensor on the card,
+        else a plain one."""
+        return torch.empty((local_bs, n, n, 3), dtype=torch.float32,
+                           pin_memory=dev.type == "cuda")
+
     def make_batch(items):
         """Worker thread: letterbox or square-resize; pad the tail batch to
         full size."""
@@ -277,11 +293,16 @@ def run_detection(
         imgs = [im for _, im in items]
         imgs_p = imgs + [imgs[-1]] * (local_bs - len(imgs))
         if not is_yolo:
-            return chunk_names, square_batch(imgs_p, net.image_size), None, \
-                None
-        hw = np.array([im.shape[:2] for im in imgs_p], np.float32)
-        lb, meta = letterbox_batch(imgs_p, img_size)
-        return chunk_names, lb, meta, hw
+            x = staged(net.image_size)
+            square_batch(imgs_p, net.image_size, out=x.numpy())
+            return chunk_names, x, None, None
+        x = staged(img_size)
+        meta = torch.from_numpy(letterbox_batch(imgs_p, img_size,
+                                                out=x.numpy())[1])
+        hw = torch.tensor([im.shape[:2] for im in imgs_p], dtype=torch.float32)
+        if dev.type == "cuda":
+            meta, hw = meta.pin_memory(), hw.pin_memory()
+        return chunk_names, x, meta, hw
 
     def save_batch(chunk_names, dets, valid):
         for bi, name in enumerate(chunk_names):
@@ -299,10 +320,31 @@ def run_detection(
                             f"{r[4]:.6f} {r[5]:.6f}\n"
                         )
 
-    # next() by hand, so the wait for each batch is a span of its own
+    def to_host(dets, valid):
+        """Queue the copy of a batch's rows to the host behind its work:
+        (dets, valid, the event that marks them there, or None off the
+        card)."""
+        if dev.type != "cuda":
+            return dets, valid, None
+        dets = dets.to("cpu", non_blocking=True)
+        valid = valid.to("cpu", non_blocking=True)
+        there = torch.cuda.Event()
+        there.record(torch.cuda.current_stream(dev))
+        return dets, valid, there
+
+    # next() by hand, so the wait for each batch is a span of its own. The
+    # loader keeps a batch in flight on each of its four workers; a batch is
+    # launched before the host waits for the batch before it, whose files
+    # the writer thread writes while the device serves this one; the last
+    # batch (iter_batches yields ceil(len(order) / local_bs)) waits for its
+    # own rows too
+    last = (len(order) - 1) // local_bs
+    queued = writes = None
     with contextlib.closing(iter_batches(img_dir, names, local_bs,
-                                         make_batch, order=order)) as batches:
-        while True:
+                                         make_batch, order=order,
+                                         prefetch=3)) as batches, \
+            ThreadPoolExecutor(max_workers=1) as writer:
+        for k in itertools.count():
             with span("serve.loader_wait"):
                 item = next(batches, None)
             if item is None:
@@ -310,10 +352,10 @@ def run_detection(
             chunk_names, arr, meta, hw = item
             with span("serve.batch"):
                 with span("serve.h2d"):
-                    x = torch.from_numpy(arr).to(dev)
+                    x = arr.to(dev, non_blocking=True)
                     if is_yolo:
-                        meta = torch.from_numpy(meta).to(dev)
-                        hw = torch.from_numpy(hw).to(dev)
+                        meta = meta.to(dev, non_blocking=True)
+                        hw = hw.to(dev, non_blocking=True)
                 if is_yolo:
                     dets, valid = detect_batch(net, x, meta, hw, conf_thres,
                                                iou_thres, dtype=dtype, q8=q8)
@@ -322,9 +364,22 @@ def run_detection(
                                                   iou_thres, dtype=dtype,
                                                   q8=q8)
                 with span("serve.d2h"):
-                    dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+                    ready = [queued] if queued is not None else []
+                    queued = (chunk_names, *to_host(dets, valid))
+                    if k == last:
+                        ready.append(queued)
+                    for *_, there in ready:
+                        if there is not None:
+                            there.synchronize()
                 with span("serve.save"):
-                    save_batch(chunk_names, dets, valid)
+                    for rows in ready:
+                        if writes is not None:
+                            writes.result()
+                        writes = writer.submit(
+                            save_batch, rows[0], rows[1].numpy(),
+                            rows[2].numpy())
+        if writes is not None:
+            writes.result()
 
 
 def dump_features(

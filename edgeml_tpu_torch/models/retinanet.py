@@ -16,7 +16,8 @@ Module names follow torchvision's ``retinanet_resnet50_fpn_v2``
 (``backbone``, ``head.classification_head.{conv,cls_logits}``,
 ``head.regression_head.{conv,bbox_reg}``). The forward takes NHWC images and
 returns (cls_logits (B, A, C), reg (B, A, 4)), rows ordered level, h, w,
-anchor.
+anchor; it is ``head_outputs(features(x))``, the backbone and FPN, then the
+two towers and output convs, which serving runs as two spans.
 
 Training (``retina_match``, ``encode_boxes``, ``retina_loss``): the
 reference's matcher (0.5 / 0.4 with low-quality matches), sigmoid focal
@@ -28,6 +29,7 @@ Serving tail (``retina_postprocess``): the reference's raw-logit tail. The
 top 2048 boxes by max-class score are chosen from the row max of the logits
 (sigmoid is monotone, so the order is the same), and only their rows are
 cast to f32 and go through sigmoid, decode and the exact batched NMS.
+The prefilter runs in the span ``nms.prefilter``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch.nn as nn
 from ..ops.metrics import box_iou_safe
 from ..ops.nms import nms_split_batch, topk1d
 from ..parallel.mesh import all_sum, world_size
+from ..utils.profiling import span
 from .common import (
     DtypeConv2d, DtypeGroupNorm, host_array, jax_conv, seeded_init_,
 )
@@ -52,6 +55,7 @@ SCALE_OCTAVES = (1.0, 2 ** (1 / 3), 2 ** (2 / 3))
 NUM_ANCHORS = len(ASPECT_RATIOS) * len(SCALE_OCTAVES)
 STRIDES = (8, 16, 32, 64, 128)
 RETINA_PRE = 2048  # raw-tail box prefilter width == the NMS max_cand
+RETINA_MAX_DET = 300  # rows an image keeps after the NMS
 PRIOR_PROB = 0.01
 
 
@@ -162,7 +166,15 @@ class RetinaNet(nn.Module):
     def forward(self, x):
         """x: (B, S, S, 3) normalised images, NHWC; the compute dtype is
         x's. Returns (cls_logits (B, A, C), reg (B, A, 4)) in that dtype."""
-        feats = self.backbone(x.permute(0, 3, 1, 2))
+        return self.head_outputs(self.features(x))
+
+    def features(self, x):
+        """Backbone and FPN: (B, S, S, 3) NHWC images -> [P3, .., P7]."""
+        return self.backbone(x.permute(0, 3, 1, 2))
+
+    def head_outputs(self, feats):
+        """The two towers and output convs on every level, concatenated
+        over the levels: (cls_logits (B, A, C), reg (B, A, 4))."""
         ch, rh = self.head.classification_head, self.head.regression_head
         cls_all, reg_all = [], []
         for f in feats:
@@ -352,18 +364,19 @@ def retina_nms_inputs(net, cls_logits, reg, anchors, score_thresh: float):
         (B, N, C) sigmoid f32), N = min(A, RETINA_PRE).
     """
     if cls_logits.shape[1] > RETINA_PRE:
-        rowmax = cls_logits.amax(dim=-1)  # exact in any dtype
-        score = torch.sigmoid(rowmax.to(torch.float32))  # (B, A)
-        box_score = torch.where(
-            score > torch.full((), score_thresh, dtype=score.dtype,
-                               device=score.device), score, -1.0)
-        _, idx = topk1d(box_score, RETINA_PRE)
-        cls_logits = cls_logits.gather(
-            1, idx[..., None].expand(-1, -1, cls_logits.shape[-1])
-        ).to(torch.float32)
-        reg = reg.gather(1, idx[..., None].expand(-1, -1, 4)).to(
-            torch.float32)
-        anchors = anchors[idx]  # (B, RETINA_PRE, 4)
+        with span("nms.prefilter"):
+            rowmax = cls_logits.amax(dim=-1)  # exact in any dtype
+            score = torch.sigmoid(rowmax.to(torch.float32))  # (B, A)
+            box_score = torch.where(
+                score > torch.full((), score_thresh, dtype=score.dtype,
+                                   device=score.device), score, -1.0)
+            _, idx = topk1d(box_score, RETINA_PRE)
+            cls_logits = cls_logits.gather(
+                1, idx[..., None].expand(-1, -1, cls_logits.shape[-1])
+            ).to(torch.float32)
+            reg = reg.gather(1, idx[..., None].expand(-1, -1, 4)).to(
+                torch.float32)
+            anchors = anchors[idx]  # (B, RETINA_PRE, 4)
     else:
         cls_logits = cls_logits.to(torch.float32)
         reg = reg.to(torch.float32)
@@ -380,7 +393,7 @@ def retina_nms_inputs(net, cls_logits, reg, anchors, score_thresh: float):
 @torch.no_grad()
 def retina_postprocess(net, cls_logits, reg, anchors,
                        score_thresh: float = 0.05, nms_thresh: float = 0.5,
-                       max_det: int = 300):
+                       max_det: int = RETINA_MAX_DET):
     """Sigmoid scores -> threshold -> decode -> class-aware NMS, through the
     raw-logit tail (``retina_nms_inputs``).
 

@@ -182,3 +182,43 @@ def test_iter_batches_order_and_drop_last(tmp_path, drop_last):
     # the default order stays the names' own
     plain = list(tloader.iter_batches(str(tmp_path), names, 4, batch))
     assert [n for ns, _ in plain for n in ns] == names
+
+
+@pytest.mark.parametrize("workers", [1, 2, 4])
+def test_iter_batches_decodes_image_by_image(tmp_path, workers):
+    """Each image decodes as a task of its own and a batch is made once its
+    images are decoded: the same batches on one worker (a batch's task waits
+    for decodes queued before it) as on four, with every batch prefetched,
+    and a file that fails to decode raises from the iterator."""
+    names = []
+    for i in range(7):
+        np.save(tmp_path / f"im{i}.npy", np.full((2, 2, 3), i / 10, np.float32))
+        names.append(f"im{i}.npy")
+
+    def batch(items):
+        return [int(round(im[0, 0, 0] * 10)) for _, im in items]
+
+    got = list(tloader.iter_batches(str(tmp_path), names, 2, batch,
+                                    prefetch=8, workers=workers))
+    assert got == [[0, 1], [2, 3], [4, 5], [6]]
+    (tmp_path / "im5.npy").write_bytes(b"not an array")
+    with pytest.raises(ValueError):
+        list(tloader.iter_batches(str(tmp_path), names, 2, batch,
+                                  workers=workers))
+
+
+@pytest.mark.parametrize("mode,ext", [("RGB", "jpg"), ("L", "jpg"),
+                                      ("RGBA", "png"), ("P", "png")])
+def test_decode_image_equal(tmp_path, mode, ext):
+    """An image file decodes to the JAX package's array bit for bit, RGB
+    (read as it is) or any other mode (converted to RGB first)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(3)
+    px = (rng.random((37, 53, 3)) * 255).astype(np.uint8)
+    im = Image.fromarray(px).convert(mode)
+    path = str(tmp_path / f"im.{ext}")
+    im.save(path)
+    got, want = tloader.decode_image(path), jloader.decode_image(path)
+    assert got.dtype == want.dtype == np.float32 and got.shape == (37, 53, 3)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

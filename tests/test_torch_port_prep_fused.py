@@ -240,3 +240,32 @@ def test_many_callers_share_the_helper_threads():
     # per call: 64x64 copied by both; 70x50 and 33x90 resampled by both
     assert fastprep.copied - c0 == 8 * 40 * 2
     assert fastprep.resampled - r0 == 8 * 40 * 4
+
+
+@pytest.mark.parametrize("kind", ["square", "letterbox"])
+def test_writes_into_a_given_array(kind):
+    """``out``: the batch is written into the given array (a torch tensor's
+    memory, as the serving loop's pinned batches are), bit-equal to a new
+    one; an array of another shape, dtype or layout is refused."""
+    imgs = images(13, COCO)
+    t = torch.full((4, 64, 64, 3), float("nan"))
+    if kind == "square":
+        got = square_batch(imgs, 64, out=t.numpy())
+        assert_bits(t.numpy(), square_batch(imgs, 64))
+    else:
+        got, meta = letterbox_batch(imgs, 64, out=t.numpy())
+        want, wmeta = letterbox_batch(imgs, 64)
+        assert_bits(t.numpy(), want)
+        np.testing.assert_array_equal(meta, wmeta)
+    assert np.shares_memory(got, t.numpy())
+    bad = [np.empty((3, 64, 64, 3), np.float32),
+           np.empty((4, 64, 64, 3), np.float64),
+           np.empty((4, 64, 3, 64), np.float32).transpose(0, 1, 3, 2)]
+    for out in bad:
+        with pytest.raises(ValueError, match="out must be"):
+            if kind == "square":
+                fastprep.square(imgs, 64, IMAGENET_MEAN, IMAGENET_STD, out=out)
+            else:
+                fastprep.letterbox(imgs, 64, [placed(im.shape[:2], 64) + (0, 0)
+                                              for im in imgs], PAD_VALUE,
+                                   out=out)

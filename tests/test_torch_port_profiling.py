@@ -7,6 +7,7 @@ request ids, counts and self times while it is on, from several threads;
 ``FasterRCNN.detect`` record; detection files unchanged by recording."""
 
 import json
+import os
 import sys
 import threading
 import time
@@ -244,9 +245,9 @@ def test_on_spans_are_annotations_on_the_calling_thread(recording, tmp_path):
 def test_run_detection_records_each_stage_once_a_batch(recording, tmp_path):
     """5 images at batch 2: three ``serve.batch`` requests, each after its
     own ``serve.loader_wait`` and with its four children once, and one last
-    wait that finds the loader done; the loader's builds on worker threads,
-    each its own request holding the letterbox; the tail's NMS spans under
-    ``detect``."""
+    wait that finds the loader done; the loader's decodes and builds on
+    worker threads, each its own request, a build holding the letterbox;
+    the tail's NMS spans under ``detect``."""
     write_images(tmp_path / "imgs")
     run_detection(small_yolo(), str(tmp_path / "imgs"), str(tmp_path / "out"),
                   batch_size=2, conf_thres=1e-6, img_size=64, device="cpu")
@@ -274,13 +275,41 @@ def test_run_detection_records_each_stage_once_a_batch(recording, tmp_path):
     assert {r.thread for r in loads}.isdisjoint({b.thread for b in batches})
     assert sorted(ids[r.parent].id for r in by["prep.letterbox"]) == \
         sorted(r.id for r in loads)
+    # each image decodes in a request of its own on the loader's threads,
+    # before its batch is prepared
+    decodes = by["load.decode"]
+    assert len(decodes) == 5 and all(r.parent is None for r in decodes)
+    assert {r.thread for r in decodes}.isdisjoint({b.thread for b in batches})
+    assert sorted(r.end_ns for r in decodes)[1] <= \
+        min(r.start_ns for r in loads)
     assert set(by) == {"serve.batch", "serve.loader_wait", *SERVE_CHILDREN,
                        "detect.trunk", "detect.tail", "nms.candidates",
                        "nms.suppress", "nms.emit", "load.batch",
-                       "prep.letterbox"}
+                       "load.decode", "prep.letterbox"}
     s = profiling.summary()
     children = sum(s[n]["total_s"] for n in SERVE_CHILDREN)
     assert children <= s["serve.batch"]["total_s"]
+
+
+def test_run_detection_raises_a_failed_write(tmp_path, monkeypatch):
+    """A batch's files are written on a writer thread while the next batch
+    is served: a write that fails raises from ``run_detection``, and the
+    files of the batches before it are on disk."""
+    write_images(tmp_path / "imgs")
+    real = np.save
+
+    def save(path, rows):
+        if os.path.basename(str(path)) == "im4.npy":  # the third batch
+            raise OSError("disk full")
+        real(path, rows)
+
+    monkeypatch.setattr(np, "save", save)
+    with pytest.raises(OSError, match="disk full"):
+        run_detection(small_yolo(), str(tmp_path / "imgs"),
+                      str(tmp_path / "out"), batch_size=2, conf_thres=1e-6,
+                      img_size=64, device="cpu")
+    assert sorted(os.listdir(tmp_path / "out")) == \
+        [f"im{i}.npy" for i in range(4)]
 
 
 def test_faster_rcnn_detect_records_its_stages(recording):
@@ -322,11 +351,13 @@ def test_single_stage_detectors_record_trunk_and_tail(recording, family):
     ids = {r.id: r for r in recs}
     parents = {r.name: ids[r.parent].name if r.parent else None
                for r in recs}
-    assert parents == {"detect": None, "detect.trunk": "detect",
-                       "detect.tail": "detect",
-                       "nms.candidates": "detect.tail",
-                       "nms.suppress": "detect.tail",
-                       "nms.emit": "detect.tail"}
+    want = {"detect": None, "detect.trunk": "detect",
+            "detect.tail": "detect", "nms.candidates": "detect.tail",
+            "nms.suppress": "detect.tail", "nms.emit": "detect.tail"}
+    if family == "retinanet":
+        # the towers in a span of their own; 3,069 anchors take the prefilter
+        want.update({"detect.head": "detect", "nms.prefilter": "detect.tail"})
+    assert parents == want
     assert len(recs) == len(parents)
 
 

@@ -100,8 +100,10 @@ picks, thr >= 1, thr < 0, a NaN thr, caps of 0, 1 and 7, dead segments,
 ragged K) and above K = 1024 (its literal-loop kernel at K = 1025 to
 12,000), the batched suppressor's K > 2048 route (the global fixpoint on the
 card, equal to the CPU's), and the row gather against ``torch.gather``
-(times the scale) at YOLOv5's and Faster R-CNN's shapes. The YOLOv5, SSDLite and RetinaNet tails
-run the row-gather kernel too.
+(times the scale) at YOLOv5's and Faster R-CNN's shapes, and the eval-norm
+and activation kernel against the op sequence at a YOLOv5n frame's 57 conv
+outputs and at Faster R-CNN's box head. The YOLOv5, SSDLite and RetinaNet
+tails run the row-gather kernel too.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase prints one line; any failure exits non-zero. The last
@@ -734,7 +736,7 @@ def main(kernels_only=False):
     # ---- phase 1: device and build (one nvcc per source, in parallel) -----
     t0 = time.perf_counter()
     _build.build(["nms_fused", "nms_blocked", "nms_seq", "gather_rows",
-                  "sgd_scan"])
+                  "sgd_scan", "norm_act"])
     build_s = time.perf_counter() - t0
     line("device", name=repr(kind), count=count, smi=repr(smi),
          torch=torch.__version__, cuda=torch.version.cuda,
@@ -778,6 +780,8 @@ def main(kernels_only=False):
     large_k_route_phase(dev)
     gather_record = gather_phase(dev)
     torch.cuda.empty_cache()
+    norm_act_record = norm_act_phase(dev)
+    torch.cuda.empty_cache()
     if kernels_only:
         mainpath_kernel_phase(dev)
         print(smi, flush=True)
@@ -789,12 +793,14 @@ def main(kernels_only=False):
     try:
         img_dir = os.path.join(tmp, "images")
         shapes = make_images(img_dir, seed=0)
-        records = [serving_phases(dev, tmp, img_dir, shapes),
+        records = [serving_phases(dev, tmp, img_dir, shapes,
+                                  norm_act_record),
                    ssd_phases(dev, tmp, img_dir, shapes)]
         int8_launches = int8_phases(dev, tmp, img_dir, shapes)
         resize_phase(dev, tmp, img_dir)
         retina_phases(dev, tmp, img_dir, shapes)
         records += frcnn_phases(dev, tmp, img_dir, shapes, gather_record)
+        records.append(norm_act_record)
         reward_phases(dev, tmp)
         records.append(estimator_phases(dev, tmp))
         hidden_phases(dev, tmp, img_dir)
@@ -988,10 +994,12 @@ def _wrappers():
         greedy_keep_mask_blocked_cuda, greedy_keep_mask_cuda,
     )
     from edgeml_tpu_torch.ops.nms_seq import suppress_mask_seq_cuda
+    from edgeml_tpu_torch.ops.norm_act import norm_act_cuda
     from edgeml_tpu_torch.ops.sgd import sgd_fit_cuda
 
     return (greedy_keep_mask_cuda, greedy_keep_mask_blocked_cuda,
-            suppress_mask_seq_cuda, gather_rows_cuda, sgd_fit_cuda)
+            suppress_mask_seq_cuda, gather_rows_cuda, sgd_fit_cuda,
+            norm_act_cuda)
 
 
 def reset_counts():
@@ -1008,6 +1016,11 @@ def counts():
 def sgd_launches():
     """SGD scan kernel launches since reset_counts()."""
     return _wrappers()[4].launches
+
+
+def norm_act_launches():
+    """Eval-norm and activation kernel launches since reset_counts()."""
+    return _wrappers()[5].launches
 
 
 def traced(tag, run):
@@ -1034,10 +1047,11 @@ def traced(tag, run):
         fail(f"{tag}: the profiler saw no device time in the traced run")
 
 
-def serving_phases(dev, tmp, img_dir, shapes):
+def serving_phases(dev, tmp, img_dir, shapes, norm_act_record):
     """Phases 3-5: YOLOv5n serving in f32 and bf16, a traced run, the kernel
-    and plain tails on the same trunk outputs, and YOLOv5m. Returns the
-    monolithic suppressor kernel's JSON record."""
+    and plain tails on the same trunk outputs, and YOLOv5m. Sets the
+    launches of ``norm_act_record`` (the eval-norm kernel's JSON record) to
+    the f32 run's; returns the monolithic suppressor kernel's record."""
     import torch
 
     from edgeml_tpu_torch.data.loader import decode_image
@@ -1122,6 +1136,11 @@ def serving_phases(dev, tmp, img_dir, shapes):
             fail(f"{label}: kernels launched {launches} + {blocked} + {seq} "
                  f"+ {gathers} times for {n_batches} batches (want "
                  f"{n_batches} + 0 + 0 + {3 * n_batches})")
+        # one eval-norm launch for each of the trunk's 57 conv blocks
+        norm_acts = norm_act_launches()
+        if norm_acts != 57 * n_batches:
+            fail(f"{label}: norm_act launched {norm_acts} times for "
+                 f"{n_batches} batches (want {57 * n_batches})")
         # scores are compared with the threshold in their own dtype
         conf_t = float(torch.tensor(conf, dtype=dtype or torch.float32))
         n_rows = check_files(out_dir, shapes, 80, conf_t)
@@ -1133,8 +1152,11 @@ def serving_phases(dev, tmp, img_dir, shapes):
         tail_ms = cuda_ms(lambda: _nms_unmap(pred, meta_t, hw_t, conf, iou),
                           10)
         runs[label] = launches
+        if label == "f32":
+            norm_act_record["launches"] = norm_acts
         line(f"serve_{label}", images=N_IMAGES, batch=BATCH, files=N_IMAGES,
-             rows=n_rows, launches=launches, e2e_img_s=f"{N_IMAGES / wall:.1f}",
+             rows=n_rows, launches=launches, norm_act_launches=norm_acts,
+             e2e_img_s=f"{N_IMAGES / wall:.1f}",
              device_img_s=f"{BATCH / dev_ms * 1e3:.1f}",
              device_batch_ms=f"{dev_ms:.3f}", trunk_ms=f"{trunk_ms:.3f}",
              tail_ms=f"{tail_ms:.3f}", peak_gib=f"{peak:.2f}")
@@ -2281,6 +2303,122 @@ def gather_phase(dev):
     return record
 
 
+def norm_act_phase(dev):
+    """Phase 2f: the eval-norm and activation kernel against its plain
+    version (the op sequence), bit for bit, over the 57 conv outputs of one
+    YOLOv5n frame at 640 (SiLU, f32 and bf16: a frame's worth of launches,
+    each in the layout the trunk gives it) and over Faster R-CNN's box head
+    at a batch of 16 (16,000 RoIs x 256 x 7 x 7 channels-last, ReLU, f32).
+    Each with the looped time, the device time alone and the host time,
+    beside the plain sequence's and the bound in bytes (y read and written
+    once). The plain sequence is timed on the checked inputs; the kernel,
+    which writes in place, on copies of them, set back to the checked
+    values before each timed loop. Returns the kernel's JSON record (the
+    f32 frame's times; its main-path launches are set by the serving
+    phase)."""
+    import torch
+
+    from edgeml_tpu_torch.models.common import ConvBN
+    from edgeml_tpu_torch.models.yolov5 import YoloV5
+    from edgeml_tpu_torch.ops.norm_act import norm_act_cuda, norm_act_plain
+
+    net = YoloV5("n", 80, 640,
+                 generator=torch.Generator().manual_seed(0)).to(dev)
+    shapes = []  # (shape, channels-last) of each block's output
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: shapes.append((tuple(out.shape), (
+            not out.is_contiguous()
+            and out.is_contiguous(memory_format=torch.channels_last)))))
+        for m in net.modules() if isinstance(m, ConvBN)]
+    with torch.no_grad():
+        net.predict(torch.rand(1, 640, 640, 3, device=dev))
+    for h in hooks:
+        h.remove()
+    del net
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def tensors(shape, dtype, channels_last=True):
+        c = shape[1]
+        y = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        if channels_last:
+            y = y.to(memory_format=torch.channels_last)
+        return [y,
+                torch.randn(c, device=dev, generator=gen).to(dtype),
+                (torch.rand(c, device=dev, generator=gen) + 0.5).to(dtype),
+                torch.randn(c, device=dev, generator=gen).to(dtype),
+                torch.randn(c, device=dev, generator=gen).to(dtype)]
+
+    for tag, dtype, act, eps, cases in (
+            ("yolov5n_frame", torch.float32, "silu", 1e-3,
+             [tensors(s, torch.float32, cl) for s, cl in shapes]),
+            ("yolov5n_frame_bf16", torch.bfloat16, "silu", 1e-3,
+             [tensors(s, torch.bfloat16, cl) for s, cl in shapes]),
+            ("box_head_b16", torch.float32, "relu", 1e-5,
+             [tensors((16000, 256, 7, 7), torch.float32)])):
+        for y, m, v, g, b in cases:
+            want = norm_act_plain(y, m, v, g, b, eps, act)
+            got = norm_act_cuda(y.clone(), m, v, g, b, eps, act)
+            torch.cuda.synchronize()
+            if not torch.equal(got.isnan(), want.isnan()) or not torch.equal(
+                    torch.nan_to_num(got), torch.nan_to_num(want)):
+                err = float((got.float() - want.float()).abs().max())
+                fail(f"norm_act {tag} {tuple(y.shape)}: kernel != plain "
+                     f"(largest difference {err})")
+        del got, want
+        work = [[t[0].clone(), *t[1:]] for t in cases]
+
+        def restore():
+            for w, t in zip(work, cases):
+                w[0].copy_(t[0])
+            torch.cuda.synchronize()
+
+        def run():
+            for t in work:
+                norm_act_cuda(*t, eps, act)
+
+        def plain():
+            for t in cases:
+                norm_act_plain(*t, eps, act)
+
+        iters = 200 if len(cases) > 1 else 20
+        restore()
+        k_ms = cuda_ms(run, iters)
+        restore()
+        d_ms = device_ms(run, 5 if len(cases) > 1 else 20)
+        restore()
+        h_us = host_us(run, 50) / len(cases)
+        p_ms = cuda_ms(plain, iters // 4)
+        nbytes = sum(2 * t[0].numel() * t[0].element_size() for t in cases)
+        bound = nbytes / H100_BYTES * 1e3
+        line("norm_act_vs_plain", shape=tag, blocks=len(cases),
+             channels_last=sum(not t[0].is_contiguous() for t in cases),
+             elements=sum(t[0].numel() for t in cases), act=act,
+             dtype=str(dtype).split(".")[-1], equal=True,
+             kernel_ms=f"{k_ms:.4f}", device_ms=f"{d_ms:.4f}",
+             host_us=f"{h_us:.2f}", plain_ms=f"{p_ms:.4f}",
+             plain_device_ms=f"{device_ms(plain, 5):.4f}",
+             plain_host_us=f"{host_us(plain, 20) / len(cases):.2f}",
+             bound_ms=f"{bound:.4f}", bound_by="bytes")
+        if tag == "yolov5n_frame":
+            record = {
+                "name": "norm_act",
+                "route": "cuda",
+                "source": "edgeml_tpu_torch/csrc/norm_act.cu",
+                "replaces": None,
+                "launches": None,
+                "max_abs_err": 0.0,
+                "ms": k_ms,
+                "device_ms": d_ms,
+                "host_us": h_us,
+                "plain_ms": p_ms,
+                "bound_ms": bound,
+                "bound_by": "bytes",
+                "library_ms": None,
+            }
+        del cases, work
+    return record
+
+
 def conv_mode_probe(net, x, ref):
     """The Faster R-CNN RPN outputs' error against the CPU's (ref) with
     cuDNN left to its heuristics, restricted to deterministic algorithms,
@@ -2434,11 +2572,17 @@ def frcnn_phases(dev, tmp, img_dir, shapes, gather_record):
         fail(f"faster_rcnn: kernels launched {mono} + {blocked} + {seq} + "
              f"{gathers} times for {n_batches} batches (want 0 + "
              f"{n_batches} + {n_batches} + {5 * n_batches})")
+    # 8 FPN blocks (identity norms) and 4 box-head blocks (ReLU) a batch
+    norm_acts = norm_act_launches()
+    if norm_acts != 12 * n_batches:
+        fail(f"faster_rcnn: norm_act launched {norm_acts} times for "
+             f"{n_batches} batches (want {12 * n_batches})")
     n_rows = check_files(out_dir, shapes[:FRCNN_IMAGES], 80, conf)
     peak = torch.cuda.max_memory_allocated() / 2**30
     line("frcnn_serve_f32", images=FRCNN_IMAGES, batch=FRCNN_BATCH,
          files=FRCNN_IMAGES, rows=n_rows, seq_launches=seq,
          blocked_launches=blocked, gather_launches=gathers,
+         norm_act_launches=norm_acts,
          e2e_img_s=f"{FRCNN_IMAGES / wall:.1f}", peak_gib=f"{peak:.2f}")
     launches = {"seq": seq, "gather": gathers}
 

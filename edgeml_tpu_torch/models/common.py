@@ -8,7 +8,9 @@ input's dtype, the 5x5 stride-1 max pool and nearest 2x upsample (both also
 on int8 maps) and the host-side letterbox. BatchNorm in eval mode is
 computed as ``(x - mean) * rsqrt(var + eps) * scale + bias`` in the
 activation dtype, the reference's formula; a bf16 serving pass runs it in
-bf16 end to end.
+bf16 end to end. Outside autograd the norm and its activation are one
+``ops/norm_act.py`` pass: on the card one kernel over the conv's output,
+bit for bit the op sequence.
 Every layer here casts its f32 weights to the input's dtype once
 (``CastCache``), so a module serves f32 and bf16 inputs without a copy of
 itself.
@@ -34,6 +36,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..data import fastprep
+from ..ops.norm_act import (  # noqa: F401  (re-exported)
+    ACTIVATIONS, hardswish, norm_act, norm_act_plain, relu6,
+)
 from ..parallel.mesh import all_sum, world_size
 from ..utils.profiling import span
 
@@ -189,25 +194,29 @@ def conv_bn_train(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, module):
     return bn_train(y, bn, g, b)
 
 
-def conv_bn(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, module):
+def conv_bn(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, module, act=None):
     """Eval (``conv_bn_eval``) or training (``conv_bn_train``) BatchNorm by
-    ``module``'s mode; a ``frozen`` module always takes the eval form."""
+    ``module``'s mode, then ``act`` (a key of ``ACTIVATIONS``); a ``frozen``
+    module always takes the eval form."""
     if module.training and not getattr(module, "frozen", False):
-        return conv_bn_train(x, conv, bn, module)
-    return conv_bn_eval(x, conv, bn, module)
+        return ACTIVATIONS[act](conv_bn_train(x, conv, bn, module))
+    return conv_bn_eval(x, conv, bn, module, act)
 
 
-def conv_bn_eval(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, module):
-    """conv(x) (no bias) then eval BatchNorm, both in x's dtype (the weights
-    cast by ``cast_params``: with autograd in training mode)."""
+def conv_bn_eval(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, module, act=None):
+    """conv(x) (no bias) then eval BatchNorm and ``act``, all in x's dtype
+    (the weights cast by ``cast_params``: with autograd in training mode).
+    Where no gradient is wanted (grad mode off, or nothing that requires
+    one), the norm and activation are one ``norm_act`` pass: on the card a
+    kernel over the conv's output in place; otherwise the plain ops."""
     w, g, b, m, v = cast_params(module, [conv.weight, bn.weight, bn.bias,
                                          bn.running_mean, bn.running_var],
                                 x.dtype)
     y = F.conv2d(x, w, None, conv.stride, conv.padding, 1, conv.groups)
-    inv = torch.rsqrt(v + torch.full((), bn.eps, dtype=v.dtype,
-                                     device=v.device))
-    return (y - m[:, None, None]) * inv[:, None, None] * g[:, None, None] \
-        + b[:, None, None]
+    if torch.is_grad_enabled() and (y.requires_grad or g.requires_grad
+                                    or b.requires_grad):
+        return norm_act_plain(y, m, v, g, b, bn.eps, act)
+    return norm_act(y, m, v, g, b, bn.eps, act)
 
 
 class ConvBN(nn.Module):
@@ -224,25 +233,7 @@ class ConvBN(nn.Module):
         self._cast = CastCache()
 
     def forward(self, x):
-        y = conv_bn(x, self.conv, self.bn, self)
-        return y * torch.sigmoid(y)
-
-
-def relu6(x):
-    return torch.clamp(x, 0.0, 6.0)
-
-
-def hardswish(x):
-    """x * clip(x + 3, 0, 6) / 6, written out as the reference writes it."""
-    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
-
-
-ACTIVATIONS = {
-    "relu": torch.relu,
-    "relu6": relu6,
-    "hardswish": hardswish,
-    None: lambda x: x,
-}
+        return conv_bn(x, self.conv, self.bn, self, "silu")
 
 
 class DtypeConv2d(nn.Conv2d):
@@ -315,7 +306,7 @@ class ConvNormAct(nn.Sequential):
         self._cast = CastCache()
 
     def forward(self, x):
-        return ACTIVATIONS[self.act](conv_bn(x, self[0], self[1], self))
+        return conv_bn(x, self[0], self[1], self, self.act)
 
 
 @torch.no_grad()
